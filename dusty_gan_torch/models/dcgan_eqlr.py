@@ -1,0 +1,83 @@
+"""Equalized-LR DCGAN generator for LiDAR range images, NCHW
+(``dusty_gan_tpu/models/dcgan_eqlr.py:110-141``).
+
+Layout and state-dict keys follow the reference ``nn.Sequential``:
+
+  0  latent projection: ConvT k(H/16, W/16) on z as (B, I, 1, 1)
+     + FusedLeakyReLU                         0.0.module.weight, 0.1.bias
+  1-3 Up: ring-pad 1; ConvT k4 s2 p3; FusedLeakyReLU
+                                              i.1.module.weight, i.2.bias
+  4  one head per output key: ring-pad 1; ConvT k4 s2 p3 with bias
+                                    4.heads.<key>.1.module.{weight,bias}
+
+``tanh`` is applied to ``depth`` only, in f32.  Each head is its own ConvT
+with its own equalized-LR scale.  The discriminator is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import torch
+from torch import nn
+
+from dusty_gan_torch.ops.activation import FusedLeakyReLU
+from dusty_gan_torch.ops.linear import EqualLR, equal_lr_convt, equal_lr_proj
+from dusty_gan_torch.ops.padding import RingPad
+
+
+def _hpad_mode(ring: bool) -> str:
+    return "circular" if ring else "reflect"
+
+
+class _Block(nn.Sequential):
+    """Sequential whose EqualLR members take ``compute_dtype``."""
+
+    def forward(self, x, compute_dtype=None):
+        for m in self:
+            x = m(x, compute_dtype) if isinstance(m, EqualLR) else m(x)
+        return x
+
+
+class Heads(nn.Module):
+    def __init__(self, in_ch: int, out_ch: Dict[str, int], ring: bool = True):
+        super().__init__()
+        self.heads = nn.ModuleDict({
+            name: _Block(
+                RingPad(1, _hpad_mode(ring), "reflect"),
+                equal_lr_convt(in_ch, ch, 4, 2, 3, bias=True),
+            )
+            for name, ch in out_ch.items()
+        })
+
+    def forward(self, x, compute_dtype=None):
+        return {name: head(x, compute_dtype) for name, head in self.heads.items()}
+
+
+class Generator(nn.Module):
+    def __init__(self, in_ch: int = 512, out_ch: Optional[Dict[str, int]] = None,
+                 ch_base: int = 64, ch_max: int = 512,
+                 shape: Sequence[int] = (64, 256), ring: bool = True):
+        super().__init__()
+        self.in_ch = int(in_ch)
+        self.out_ch = dict(out_ch or {"depth": 1})
+        self.shape = tuple(shape)
+        ch = lambda i: min(ch_base << i, ch_max)
+        h0, w0 = self.shape[0] >> 4, self.shape[1] >> 4
+        self.add_module("0", _Block(equal_lr_proj(self.in_ch, ch(3), (h0, w0)),
+                                    FusedLeakyReLU(ch(3))))
+        for idx, i in enumerate((2, 1, 0)):
+            self.add_module(str(idx + 1), _Block(
+                RingPad(1, _hpad_mode(ring), "reflect"),
+                equal_lr_convt(ch(i + 1), ch(i), 4, 2, 3),
+                FusedLeakyReLU(ch(i)),
+            ))
+        self.add_module("4", Heads(ch(0), self.out_ch, ring))
+
+    def forward(self, z, compute_dtype: Optional[torch.dtype] = None):
+        h = z[:, :, None, None]
+        for i in range(4):
+            h = self._modules[str(i)](h, compute_dtype)
+        outs = self._modules["4"](h, compute_dtype)
+        outs["depth"] = torch.tanh(outs["depth"].float())
+        return outs

@@ -1,0 +1,56 @@
+"""Equalized-learning-rate transposed convolutions (ProGAN).
+
+Weights are N(0, 1) and scaled at run time by ``gain / sqrt(fan_in)``
+with ``fan_in = weight[0].numel()`` in the torch layout.  For
+``nn.ConvTranspose2d`` the weight is (I, O, kh, kw), so the scale is
+``1/sqrt(O*kh*kw)``: the reference's ConvT fan-in quirk, kept
+(``dusty_gan_tpu/ops/linear.py:91-136,177-201``).
+
+``EqualLR`` wraps the conv as ``.module`` so the state-dict keys are the
+reference's ``<...>.module.weight`` / ``.module.bias``.  The forward runs a
+plain ``F.conv_transpose2d`` in ``compute_dtype`` (None = the input's
+dtype); a bias is added after the conv in the output dtype.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class EqualLR(nn.Module):
+    """Runtime-scaled ``nn.ConvTranspose2d`` (the only conv G uses)."""
+
+    def __init__(self, module: nn.ConvTranspose2d, gain: float = 1.0):
+        super().__init__()
+        if not isinstance(module, nn.ConvTranspose2d):
+            raise TypeError(f"EqualLR wraps nn.ConvTranspose2d, got {type(module)}")
+        self.module = module
+        nn.init.normal_(module.weight)
+        if module.bias is not None:
+            nn.init.zeros_(module.bias)
+        self.scale = gain / math.sqrt(module.weight[0].numel())
+
+    def forward(self, x, compute_dtype=None):
+        m = self.module
+        dtype = compute_dtype or x.dtype
+        w = (m.weight * self.scale).to(dtype)
+        y = F.conv_transpose2d(x.to(dtype), w, None, m.stride, m.padding)
+        if m.bias is not None:
+            y = y + m.bias.to(y.dtype).view(1, -1, 1, 1)
+        return y
+
+
+def equal_lr_convt(in_ch: int, out_ch: int, kernel, stride=1, padding=0,
+                   bias: bool = False) -> EqualLR:
+    return EqualLR(nn.ConvTranspose2d(in_ch, out_ch, kernel, stride, padding,
+                                      bias=bias))
+
+
+def equal_lr_proj(in_ch: int, out_ch: int, shape=(4, 16)) -> EqualLR:
+    """Latent projection (``dcgan_eqlr.py:6-16``): a ConvT with kernel
+    (H0, W0), stride 1, padding 0, applied to z as a (B, I, 1, 1) map."""
+    return equal_lr_convt(in_ch, out_ch, tuple(shape))

@@ -1,0 +1,136 @@
+"""dusty_gan_torch.cli.evaluate_synthesis on the CPU on a tiny synthetic
+tree: the JSON key set equals the JAX CLI's on the same reference-format
+.pth, the scores do not depend on the batch size, the CLI refuses to run
+without a GPU unless --device cpu is given, unported flags raise, and no
+module of the port (nor chip_smoke.py) imports JAX or the JAX package."""
+
+import glob
+import json
+import os.path as osp
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dusty_gan_tpu.cli.evaluate_synthesis import main as jax_main
+from dusty_gan_tpu.models.factory import define_G as jax_define_G
+from dusty_gan_tpu.utils import torch_export as te
+
+from dusty_gan_torch.cli.evaluate_synthesis import main, latents
+from dusty_gan_torch.config import compose, load_config, save_config
+from dusty_gan_torch.data.synthetic import build_synthetic_kitti
+
+REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
+CONFIG_DIR = osp.join(REPO, "configs")
+TINY = ["--num-test", "4", "--num-points", "64", "--cd-batch", "3"]
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    """A synthetic tree, a resolved config and a reference-format .pth of a
+    JAX-initialised tiny DUSty-II generator."""
+    base = tmp_path_factory.mktemp("cli")
+    root = build_synthetic_kitti(str(base / "data"), n_scans_per_seq=5, w0=512,
+                                 sequences=(0, 11))
+    cfg = compose(CONFIG_DIR, [
+        "model=dusty2_dcgan_eqlr", "model.gen.in_ch=16", "model.gen.ch_base=8",
+        "model.gen.ch_max=16", f"dataset.root={root}", "solver.batch_size=3"])
+    cfg_path = save_config(cfg, str(base / "run"))
+    jcfg = load_config(cfg_path)
+    jcfg.model.gen.shape = list(jcfg.dataset.shape)
+    Gj = jax_define_G(jcfg)
+    params = Gj.init({"params": jax.random.PRNGKey(0), "gumbel": jax.random.PRNGKey(1)},
+                     jnp.zeros((1, 16)))
+    sd = {k: torch.from_numpy(np.array(v)) for k, v in
+          te.generator_state_dict(params, "dusty2/dcgan_eqlr", -1.0).items()}
+    pth = str(base / "checkpoint.pth")
+    torch.save({"step": 12, "G": sd, "G_ema": sd}, pth)
+    return {"base": base, "root": root, "cfg": cfg_path, "pth": pth}
+
+
+def _args(run, *extra):
+    return ["--model-path", run["pth"], "--config-path", run["cfg"],
+            "--save-dir-path", str(run["base"] / "out"), *TINY, *extra]
+
+
+def test_key_set_equals_jax_cli(run, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    want = jax_main(_args(run, "--compute-gt"))
+    gt = main(_args(run, "--compute-gt", "--device", "cpu"))
+    fake = main(_args(run, "--device", "cpu"))
+    assert set(gt) == set(fake) == set(want)
+    assert all(np.isfinite(v) for v in fake.values())
+    # the real-vs-real floor is computed from the same real tensors
+    for k in ("swd-mean", "jsd", "mmd-cd"):
+        np.testing.assert_allclose(gt[k], want[k], rtol=1e-3, err_msg=k)
+    assert glob.glob(str(tmp_path / "outputs/logs/*/gt/evaluation/tol=0/*.json"))
+    saved = sorted(glob.glob(str(run["base"] / "out" / "*.json")))
+    with open(saved[-1]) as f:
+        assert json.load(f) == pytest.approx(fake)
+    caches = glob.glob(osp.join(run["root"], "cache", "torch_eval_*_64_*.npz"))
+    assert len(caches) == 2  # train + test, apart from the JAX caches
+
+
+def test_mask_threshold_reports_drop_rate(run):
+    s = main(_args(run, "--device", "cpu", "--mask-threshold", "0.3"))
+    assert s["mask_threshold"] == 0.3 and 0.0 <= s["drop_rate/fake"] <= 1.0
+
+
+def test_scores_do_not_depend_on_batch_size(run, tmp_path):
+    cfg = load_config(run["cfg"])
+    cfg.solver.batch_size = 2
+    other = save_config(cfg, str(tmp_path))
+    a = main(_args(run, "--device", "cpu"))
+    b = main(["--model-path", run["pth"], "--config-path", other,
+              "--save-dir-path", str(tmp_path), *TINY, "--device", "cpu"])
+    assert a == b
+
+
+def test_prepare_only(run, tmp_path):
+    assert main(_args(run, "--device", "cpu", "--prepare-only",
+                      "--num-points", "32")) == {"prepared": True}
+    assert glob.glob(osp.join(run["root"], "cache", "torch_eval_*_32_*.npz"))
+
+
+def test_latents_per_sample_index():
+    a = latents(0, 5, 8)
+    np.testing.assert_array_equal(latents(3, 5, 8).numpy(), a[3:].numpy())
+    assert a.shape == (5, 8) and not torch.equal(a[0], a[1])
+
+
+def test_refuses_cpu_fallback_without_gpu(run):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU")
+    with pytest.raises(RuntimeError, match="GPU"):
+        main(_args(run))
+
+
+@pytest.mark.parametrize("flag", [["--metrics", "cd,emd"], ["--calibrate-drop-rate"],
+                                  ["--multihost"]])
+def test_unported_flags_raise(run, flag):
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        main(_args(run, "--device", "cpu", *flag))
+
+
+def test_port_never_imports_jax():
+    """Import every module of the port and chip_smoke.py in a fresh
+    interpreter: neither JAX nor the JAX package may be loaded."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import dusty_gan_torch\n"
+        "for m in pkgutil.walk_packages(dusty_gan_torch.__path__, 'dusty_gan_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'dusty_gan_tpu'))\n"
+        "print(len([k for k in sys.modules if k.startswith('dusty_gan_torch')]), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert int(out.stdout.split()[0]) >= 20
