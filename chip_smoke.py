@@ -1,20 +1,29 @@
 """Smoke run of dusty_gan_torch on one CUDA GPU.
 
-    python3 chip_smoke.py [--num-test 512]
+    python3 chip_smoke.py [--num-test 512] [--num-step 1000]
 
 1. Prints the card's name and power limit and the torch version, and
-   builds every CUDA kernel of the port from ``dusty_gan_torch/csrc``.
+   builds every CUDA kernel of the port from ``dusty_gan_torch/csrc``
+   (one nvcc per source, all started together).
 2. Holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes and at ragged ones, and times both.
-3. Drives the main path, ``dusty_gan_torch.cli.evaluate_synthesis``, for the
-   full-width DUSty-II generator (configs/model/dusty2_dcgan_eqlr.yaml,
+   main paths' shapes and at ragged ones, and times both: ``cd_block``
+   (K1), ``nn_dist`` (K2) and ``nn_argmin`` (K3); and the gradient of
+   ``chamfer_distance`` against autograd through the dense distances.
+3. Drives the synthesis path, ``dusty_gan_torch.cli.evaluate_synthesis``,
+   for the full-width DUSty-II generator (configs/model/dusty2_dcgan_eqlr.yaml,
    64x256 KITTI) with seeded random weights on a synthetic KITTI tree:
    512 test scans (``--num-test``; 5000 is the paper's protocol),
-   2048-point clouds, and again with --compute-gt.  Kernel
-   launch counts are set to 0 just before and read just after.
-4. Checks the scores (every key, finite) and, on a small input, the card's
-   scores and generator output against the CPU.
-5. Prints a JSON line of per-kernel numbers, the card line, and as the
+   2048-point clouds, and again with --compute-gt.
+4. Drives the reconstruction path,
+   ``dusty_gan_torch.cli.evaluate_reconstruction``, on the same generator
+   and tree: one batch of 512 test scans, ``--num-step`` inversion steps,
+   Chamfer distance on the full 16,384-point clouds; checks the CSV, that
+   the masked loss fell, and profiles a few inversion steps.
+   Each path's kernel launch counts are set to 0 just before it and read
+   just after.
+5. Checks the scores (every key, finite) and, on small inputs, the card's
+   scores, generator output and inversion against the CPU.
+6. Prints a JSON line of per-kernel numbers, the card line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, with no result line, when there is no GPU or any phase
@@ -24,6 +33,9 @@ fails.
 from __future__ import annotations
 
 import argparse
+import copy
+import csv
+import glob
 import json
 import math
 import os
@@ -39,23 +51,34 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 from dusty_gan_torch import kernels  # noqa: E402
+from dusty_gan_torch.cli import evaluate_reconstruction as er  # noqa: E402
 from dusty_gan_torch.cli import evaluate_synthesis as es  # noqa: E402
 from dusty_gan_torch.config import compose, save_config  # noqa: E402
 from dusty_gan_torch.data.synthetic import build_synthetic_kitti  # noqa: E402
 from dusty_gan_torch.metrics import chamfer_cuda  # noqa: E402
+from dusty_gan_torch.metrics.chamfer import chamfer_distance  # noqa: E402
 from dusty_gan_torch.metrics.cov_mmd_1nna import (  # noqa: E402
     ROW_BLOCK, block_schedule, compute_cov_mmd_1nna)
 from dusty_gan_torch.models.factory import define_G  # noqa: E402
+from dusty_gan_torch.models.losses import masked_loss  # noqa: E402
+from dusty_gan_torch.utils.inversion import make_inversion_loop  # noqa: E402
+from dusty_gan_torch.utils.setup import make_eval_generator, make_fixed_noise  # noqa: E402
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM3 and FP32 outside the
-# tensor cores
+# published H100 SXM peaks (NVIDIA data sheet): HBM3, FP32 outside the
+# tensor cores, dense bf16 in them
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12
 # 3 subtractions, 3 multiplies and 2 additions per squared distance (the
 # min is not counted); a pair needs at least N*M distances
 FLOP_PER_DISTANCE = 8
 CD_RTOL, CD_ATOL = 1e-5, 1e-6  # as tests/test_chamfer_pallas.py
 NUM_TEST, NUM_POINTS, CD_BATCH = 512, 2048, 512
+NUM_STEP, REC_BATCH, SCAN_POINTS = 1000, 512, 64 * 256
+# the JAX CLI's CSV header (dusty_gan_tpu/cli/evaluate_reconstruction.py)
+REC_CSV_HEADER = ["", "cd", "accuracy_1", "accuracy_2", "accuracy_3", "rmse",
+                  "rmse_log", "abs_rel", "sq_rel", "tol", "drop_gen", "drop_ref"]
+Z_ATOL = 1e-4  # card vs CPU z* after 5 float32 L2 inversion steps (z has unit RMS)
 EXPECTED_KEYS = {
     "swd-16", "swd-32", "swd-64", "swd-mean", "jsd", "mmd-cd", "mmd-sample-cd",
     "cov-cd", "1-nn-tp-cd", "1-nn-fp-cd", "1-nn-fn-cd", "1-nn-tn-cd",
@@ -145,7 +168,117 @@ def protocol_launches(n: int = 5000) -> int:
     return 2 * sym + len(list(block_schedule(n, n, R, C, False)))
 
 
-def main_path(dev, work: str, num_test: int) -> dict:
+def nn_bound(b: int, n: int, m: int):
+    """(bound ms, bound_by) of one nearest-neighbour launch: the larger of
+    its bytes (both clouds read, distances and indices written) over the
+    memory rate and its B*N*M distances over the FP32 rate."""
+    nbytes = 4 * (b * n * 3 + b * m * 3 + 2 * b * n)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = FLOP_PER_DISTANCE * b * n * m / PEAK_FP32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_nn(dev) -> list:
+    """K2 (``nn_dist``) and K3 (``nn_argmin``) against ``nn_reference`` on
+    the card: distances within rtol 1e-5 / atol 1e-6; indices equal, or,
+    where they differ (the kernel contracts to fused multiply-adds, so a
+    near-tie can round the other way), the two candidates' distances agree
+    within the same tolerance.  Times both and their plain versions at the
+    reconstruction shape."""
+    g = torch.Generator().manual_seed(2)
+    shapes = [(4, SCAN_POINTS, SCAN_POINTS),  # a fifth of the points at the origin
+              (3, 300, 5000),                 # ragged
+              (5, 1000, 300),                 # N != M
+              (2, 3000, 5000)]                # M above one shared-memory chunk
+    err = {"nn_dist": 0.0, "nn_argmin": 0.0}
+    mismatches = compared = 0
+    for b, n, m in shapes:
+        x, y = clouds(g, b, n, dev), clouds(g, b, m, dev)
+        d2 = chamfer_cuda.nn_dist(x, y)
+        d3, i3 = chamfer_cuda.nn_argmin(x, y)
+        torch.cuda.synchronize()
+        want_d, want_i = chamfer_cuda.nn_reference(x, y, need_idx=True)
+        for name, d in (("nn_dist", d2), ("nn_argmin", d3)):
+            e = (d - want_d).abs()
+            if bool((e > CD_ATOL + CD_RTOL * want_d.abs()).any()):
+                raise AssertionError(f"{name} disagrees with nn_reference at "
+                                     f"({b},{n})x({b},{m}): max abs err {float(e.max())}")
+            err[name] = max(err[name], float(e.max()))
+        diff = i3 != want_i
+        if bool(diff.any()):
+            def dist_at(idx):
+                near = torch.gather(y, 1, idx.long()[..., None].expand(-1, -1, 3))
+                return ((x - near) ** 2).sum(-1)[diff]
+            da, db = dist_at(i3), dist_at(want_i)
+            if bool(((da - db).abs() > CD_ATOL + CD_RTOL * db.abs()).any()):
+                raise AssertionError(f"nn_argmin picks a farther point than "
+                                     f"nn_reference at ({b},{n})x({b},{m})")
+        mismatches += int(diff.sum())
+        compared += diff.numel()
+        print(f"nn ({b},{n})x({b},{m}): nn_dist max_abs_err {err['nn_dist']:.3e}, "
+              f"nn_argmin max_abs_err {err['nn_argmin']:.3e}, index mismatches "
+              f"{int(diff.sum())} of {diff.numel()}")
+
+    b, n = REC_BATCH, SCAN_POINTS
+    x, y = clouds(g, b, n, dev), clouds(g, b, n, dev)
+    bound_ms, bound_by = nn_bound(b, n, n)
+    entries = []
+    for name, fn, plain, line in (
+            ("nn_dist", chamfer_cuda.nn_dist,
+             lambda: chamfer_cuda.nn_reference(x, y, need_idx=False), 355),
+            ("nn_argmin", chamfer_cuda.nn_argmin,
+             lambda: chamfer_cuda.nn_reference(x, y, need_idx=True), 346)):
+        ms = cuda_ms(lambda: fn(x, y), iters=5)
+        plain_ms = cuda_ms(plain, iters=1, warmup=0)
+        print(f"{name} ({b},{n})x({b},{n}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {bound_ms:.3f} ms ({bound_by})")
+        entries.append({"name": name, "route": "cuda",
+                        "source": "dusty_gan_torch/csrc/nn.cu",
+                        "replaces": f"dusty_gan_tpu/metrics/chamfer_pallas.py:{line}",
+                        "launches": None, "max_abs_err": err[name], "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None})
+    entries[1]["index_mismatches"] = f"{mismatches} of {compared}"
+    entries[1]["note"] = ("no ported CLI path runs nn_argmin yet (its caller is the "
+                          "demo's chamfer inversion); launches are those of the "
+                          "reconstruction path, 0")
+    return entries
+
+
+def check_chamfer_grad(dev) -> None:
+    """``chamfer_distance``'s forward (K3 both ways) and analytic backward on
+    the card against autograd through the dense distance matrix on the
+    card, on clouds without ties (autograd splits a tied minimum's gradient
+    evenly, the analytic backward gives it to the first index).  rtol 1e-5 /
+    atol 1e-6: the cross terms are summed with atomics in no fixed order."""
+    g = torch.Generator().manual_seed(3)
+    x = (torch.rand((4, 3000, 3), generator=g) * 1.6 - 0.8).to(dev)
+    y = (torch.rand((4, 2000, 3), generator=g) * 1.6 - 0.8).to(dev)
+    w1 = torch.rand((4, 3000), generator=g).to(dev)
+    w2 = torch.rand((4, 2000), generator=g).to(dev)
+    grads = []
+    for analytic in (True, False):
+        tx, ty = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+        if analytic:
+            d1, d2 = chamfer_distance(tx, ty)
+        else:
+            d = ((tx[:, :, None] - ty[:, None]) ** 2).sum(-1)
+            d1, d2 = d.amin(dim=2), d.amin(dim=1)
+        ((d1 * w1).sum() + (d2 * w2).sum()).backward()
+        grads.append((d1.detach(), d2.detach(), tx.grad, ty.grad))
+    torch.cuda.synchronize()
+    for name, got, want in zip(("dist1", "dist2", "grad x", "grad y"), *grads):
+        e = (got - want).abs()
+        print(f"chamfer_distance {name}: max_abs_err {float(e.max()):.3e} "
+              f"(rtol {CD_RTOL}, atol {CD_ATOL})")
+        if bool((e > CD_ATOL + CD_RTOL * want.abs()).any()):
+            raise AssertionError(f"chamfer_distance {name} on the card disagrees "
+                                 f"with dense autograd: {float(e.max())}")
+
+
+def prepare(work: str, num_test: int) -> dict:
+    """Synthetic KITTI tree, the full-width DUSty-II config and a
+    reference-format .pth of seeded random weights."""
     root = build_synthetic_kitti(os.path.join(work, "data"), n_scans_per_seq=num_test,
                                  w0=512, sequences=(0, 11))
     cfg = compose(os.path.join(REPO, "configs"),
@@ -162,11 +295,16 @@ def main_path(dev, work: str, num_test: int) -> dict:
     pth = os.path.join(work, "checkpoint.pth")
     torch.save({"step": 0, "G": sd, "G_ema": sd}, pth)
     cfg_path = save_config(cfg, os.path.join(work, "run"))
-    args = ["--model-path", pth, "--config-path", cfg_path,
+    return {"G": G, "cfg": cfg, "pth": pth, "cfg_path": cfg_path}
+
+
+def synthesis_path(work: str, run: dict, num_test: int) -> int:
+    """evaluate_synthesis (generated and --compute-gt); returns the
+    cd_block launches of the two runs."""
+    args = ["--model-path", run["pth"], "--config-path", run["cfg_path"],
             "--save-dir-path", os.path.join(work, "out"),
             "--num-test", str(num_test), "--num-points", str(NUM_POINTS),
             "--cd-batch", str(CD_BATCH), "--device", "cuda"]
-
     cwd = os.getcwd()
     os.chdir(work)  # --compute-gt writes outputs/ under the working directory
     try:
@@ -187,12 +325,140 @@ def main_path(dev, work: str, num_test: int) -> dict:
         if bad:
             raise AssertionError(f"{name} scores not finite: {bad}")
     if launches <= 0:
-        raise AssertionError("the main path launched cd_block no time")
+        raise AssertionError("the synthesis path launched cd_block no time")
     print("scores (generated vs test):", json.dumps(fake, sort_keys=True))
     print("scores (train vs test):", json.dumps(gt, sort_keys=True))
     print("stages:", json.dumps({"generated_run_s": t1 - t0, "gt_run_s": t2 - t1,
                                  "generated": t_fake, "gt": t_gt}))
-    return {"launches": launches, "G": G, "cfg": cfg}
+    return launches
+
+
+def reconstruction_path(work: str, run: dict, num_step: int) -> dict:
+    """evaluate_reconstruction on one batch of 512 test scans; returns the
+    nn kernels' launches of the run."""
+    out_dir = os.path.join(work, "rec")
+    args = ["--model-path", run["pth"], "--config-path", run["cfg_path"],
+            "--save-dir-path", out_dir, "--batch-size", str(REC_BATCH),
+            "--num-step", str(num_step), "--max-batches", "1", "--device", "cuda"]
+    stats = {}
+    torch.cuda.reset_peak_memory_stats()
+    chamfer_cuda.nn_dist.launches = chamfer_cuda.nn_argmin.launches = 0
+    t0 = time.perf_counter()
+    er.main(args, stats=stats)
+    wall = time.perf_counter() - t0
+    launches = {"nn_dist": chamfer_cuda.nn_dist.launches,
+                "nn_argmin": chamfer_cuda.nn_argmin.launches}
+
+    (path,) = glob.glob(os.path.join(out_dir, "*.csv"))
+    with open(path) as f:
+        rows = list(csv.reader(f))
+    if rows[0] != REC_CSV_HEADER:
+        raise AssertionError(f"CSV header {rows[0]} is not the JAX CLI's")
+    if len(rows) - 1 != REC_BATCH:
+        raise AssertionError(f"CSV has {len(rows) - 1} rows, expected {REC_BATCH}")
+    bad = [r for r in rows[1:] if not all(math.isfinite(float(v)) for v in r[1:])]
+    if bad:
+        raise AssertionError(f"{len(bad)} CSV rows hold non-finite values: {bad[0]}")
+    if launches["nn_dist"] != 2:
+        raise AssertionError(f"the reconstruction path launched nn_dist "
+                             f"{launches['nn_dist']} times, expected 2")
+    if not stats["loss_zstar"] < stats["loss_z0"]:
+        raise AssertionError(f"the masked loss did not fall: z0 {stats['loss_z0']} "
+                             f"-> z* {stats['loss_zstar']}")
+    cols = list(zip(*[[float(v) for v in r[1:]] for r in rows[1:]]))
+    means = {k: sum(c) / len(c) for k, c in zip(REC_CSV_HEADER[1:], cols)}
+    print("reconstruction means:", json.dumps(means, sort_keys=True))
+    print("stages:", json.dumps({
+        "reconstruction_run_s": wall, "inversion_s": stats["inversion_s"],
+        "ms_per_step": stats["inversion_s"] / num_step * 1e3,
+        "cd_ms": stats["cd_s"] * 1e3, "rest_s": stats["rest_s"],
+        "loss_z0": stats["loss_z0"], "loss_zstar": stats["loss_zstar"],
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "num_step": num_step, "batch": REC_BATCH}))
+    return launches
+
+
+def profile_inversion(dev, run: dict, steps: int = 10) -> None:
+    """Kernel time by name and the device's busy share over ``steps``
+    inversion steps of the full-width generator at batch 512 in bf16 (the
+    reconstruction path's setting), from torch.profiler; per-step numbers
+    include 1/steps of the loop's final forward.  Also the FLOP of one step
+    (forward and the gradient for z) from torch's FLOP counter, and the
+    least time the bf16 tensor cores need for them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    G = copy.deepcopy(run["G"]).to(dev)
+    gen = make_eval_generator(G, make_fixed_noise(G, (64, 256), device=dev),
+                              differentiable=True)
+    g = torch.Generator(device=dev).manual_seed(4)
+    ref = torch.rand((REC_BATCH, 64, 256, 1), generator=g, device=dev)
+    mask = (torch.rand((REC_BATCH, 64, 256, 1), generator=g, device=dev) > 0.2).float()
+    z0 = torch.randn((REC_BATCH, 512), generator=g, device=dev)
+    noise = lambda i, shape: torch.randn(shape, generator=g, device=dev)  # noqa: E731
+    loss = lambda z: masked_loss(ref, (gen(z)["depth_orig"] + 1.0) / 2.0, mask)  # noqa: E731
+    loop = make_inversion_loop(loss, num_steps=steps)
+    loop(z0, noise)  # warm-up
+    with FlopCounterMode(display=False) as fc:
+        make_inversion_loop(loss, num_steps=1)(z0, noise)
+    one_step_and_forward = fc.get_total_flops()
+    with FlopCounterMode(display=False) as fc:
+        with torch.no_grad():
+            loss(z0)
+    flop_step = one_step_and_forward - fc.get_total_flops()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loop(z0, noise)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    per_kernel = {}
+    for e in prof.events():  # device-side events: kernels, copies, sets
+        if e.device_type == DeviceType.CUDA:
+            per_kernel[e.name] = per_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    rows = sorted(per_kernel.items(), key=lambda r: -r[1])
+    busy_ms = sum(t for _, t in rows)
+    print("inversion_profile:", json.dumps({
+        "steps": steps, "batch": REC_BATCH, "wall_ms_per_step": wall_ms / steps,
+        "flop_per_step": flop_step,
+        "bf16_bound_ms_per_step": flop_step / PEAK_BF16_FLOP_PER_S * 1e3,
+        "device_busy_ms_per_step": busy_ms / steps if rows else "not measured",
+        "device_idle_share": 1.0 - busy_ms / wall_ms if rows else "not measured",
+        "top_kernels_ms_per_step": [[k[:90], t / steps] for k, t in rows[:12]]}))
+
+
+def inversion_card_vs_cpu(dev, run: dict, steps: int = 5) -> None:
+    """5 inversion steps of the full-width generator in float32 at batch 2,
+    from the same z0, noise and target, on the card and on the CPU.  Under
+    the L2 loss z* must agree within atol Z_ATOL.  Under the L1 loss (the
+    CLI's default) the difference is printed, not held: a pixel whose error
+    crosses 0 flips the sign of its gradient, so two float32 trajectories
+    part once one crosses at a different step."""
+    g = torch.Generator().manual_seed(5)
+    ref = torch.rand((2, 64, 256, 1), generator=g)
+    mask = (torch.rand((2, 64, 256, 1), generator=g) > 0.2).float()
+    z0 = torch.randn((2, 512), generator=g)
+    draws = [torch.randn((2, 512), generator=g) for _ in range(steps)]
+    fixed = make_fixed_noise(run["G"], (64, 256))
+    for distance in ("l2", "l1"):
+        z = {}
+        for where in ("cuda", "cpu"):
+            d = dev if where == "cuda" else torch.device("cpu")
+            G = copy.deepcopy(run["G"]).to(d)
+            fn = {k: v.to(d) for k, v in fixed.items()}
+            gen = make_eval_generator(G, fn, compute_dtype=None, differentiable=True)
+            r, m = ref.to(d), mask.to(d)
+            loop = make_inversion_loop(
+                lambda zz: masked_loss(r, (gen(zz)["depth_orig"] + 1.0) / 2.0, m, distance),
+                num_steps=steps)
+            z[where] = loop(z0.to(d), lambda i, shape: draws[i].to(d))[0].cpu()
+        err = float((z["cuda"] - z["cpu"]).abs().max())
+        held = f"atol {Z_ATOL}" if distance == "l2" else "not held"
+        print(f"inversion card vs cpu ({steps} float32 steps, batch 2, {distance}): "
+              f"z* max_abs_err {err:.3e} ({held})")
+        if distance == "l2" and err > Z_ATOL:
+            raise AssertionError(f"z* on the card vs the CPU: {err}")
 
 
 def small_input_agreement(dev, G) -> None:
@@ -220,12 +486,17 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--num-test", type=int, default=NUM_TEST,
                         help="scans per split of the synthetic tree and scored "
-                             "samples of the main-path run")
+                             "samples of the synthesis run")
+    parser.add_argument("--num-step", type=int, default=NUM_STEP,
+                        help="inversion steps of the reconstruction run")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    if args.num_test < REC_BATCH:
+        raise SystemExit(f"--num-test must be at least {REC_BATCH}: the "
+                         "reconstruction run inverts one batch of that many scans")
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -237,19 +508,26 @@ def main(argv=None) -> int:
     kernels.build()
     print(f"kernel build: {time.perf_counter() - t:.1f} s")
 
-    entry = check_cd_block(dev)
+    entries = [check_cd_block(dev)] + check_nn(dev)
+    check_chamfer_grad(dev)
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(REPO, "build"))
     try:
-        run = main_path(dev, work, args.num_test)
+        run = prepare(work, args.num_test)
+        cd_launches = synthesis_path(work, run, args.num_test)
+        nn_launches = reconstruction_path(work, run, args.num_step)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    entry["launches"] = run["launches"]
+    entries[0]["launches"] = cd_launches
+    entries[1]["launches"] = nn_launches["nn_dist"]
+    entries[2]["launches"] = nn_launches["nn_argmin"]
     print(f"cd_block launches in one {args.num_test}-scan run: "
-          f"{run['launches'] // 2}; in one 5000-scan run: {protocol_launches()}")
+          f"{cd_launches // 2}; in one 5000-scan run: {protocol_launches()}")
+    profile_inversion(dev, run)
+    inversion_card_vs_cpu(dev, run)
     small_input_agreement(dev, run["G"])
 
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,6 +34,13 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def synchronize(device: torch.device) -> None:
+    """Wait for the device's queued work (a no-op on the CPU), so that a
+    host clock around it measures the work and not its enqueue."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def set_metric_precision() -> None:
     """Metric math runs in true f32: TF32 keeps ~3 decimal digits, which
     moves nearest-neighbour distances, SWD projections and the depth

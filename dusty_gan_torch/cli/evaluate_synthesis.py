@@ -29,7 +29,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from dusty_gan_torch import resolve_device
+from dusty_gan_torch import resolve_device, synchronize
 from dusty_gan_torch.data.datasets import define_dataset
 from dusty_gan_torch.data.loader import Loader
 from dusty_gan_torch.geometry.lidar import sigmoid_to_tanh, tanh_to_sigmoid
@@ -78,11 +78,6 @@ def to_points(lidar, inv: torch.Tensor, tol: float, num_points: int) -> torch.Te
     return torch.cat(out)
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def score(gen_2d, gen_3d, ref_2d, ref_3d, cd_batch: int, draws=None,
           timings: Optional[Dict[str, float]] = None) -> Dict[str, float]:
     """SWD, JSD and COV/MMD/1-NNA (CD) of generated against reference
@@ -92,14 +87,14 @@ def score(gen_2d, gen_3d, ref_2d, ref_3d, cd_batch: int, draws=None,
     scores: Dict[str, float] = {}
     t = time.perf_counter()
     scores.update(compute_swd(gen_2d, ref_2d, draws))
-    _sync(device)
+    synchronize(device)
     timings["swd"] = time.perf_counter() - t
     t = time.perf_counter()
     scores["jsd"] = compute_jsd(gen_3d / 2.0, ref_3d / 2.0)
     timings["jsd"] = time.perf_counter() - t
     t = time.perf_counter()
     scores.update(compute_cov_mmd_1nna(gen_3d, ref_3d, cd_batch, ("cd",), verbose=True))
-    _sync(device)
+    synchronize(device)
     timings["pairwise_cd"] = time.perf_counter() - t
     return scores
 
@@ -226,11 +221,11 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None):
         z = latents(i, min(i + batch_size, n_test), in_ch).to(device)
         fake_2d.append(gen(z, threshold=mask_threshold)["depth"])
     fake_2d = torch.cat(fake_2d).contiguous()
-    _sync(device)
+    synchronize(device)
     timings["generation"] = time.perf_counter() - t
     t = time.perf_counter()
     fake_3d = to_points(lidar, fake_2d, args.tol, args.num_points)
-    _sync(device)
+    synchronize(device)
     timings["fps"] = time.perf_counter() - t
 
     scores = score(fake_2d, fake_3d, reals["test"]["2d"], reals["test"]["3d"],

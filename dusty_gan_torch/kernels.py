@@ -32,6 +32,11 @@ SIGNATURES = {
         "cd_block_launch": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
         "cd_block_error_string": (ctypes.c_char_p, [_I]),
     },
+    "nn": {
+        "nn_dist_launch": (_I, [_P, _P, _P, _I, _I, _I, _P]),
+        "nn_argmin_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
+        "nn_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

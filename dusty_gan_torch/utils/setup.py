@@ -82,15 +82,21 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
-def make_eval_generator(G, fixed_noise, compute_dtype=torch.bfloat16):
+def make_eval_generator(G, fixed_noise, compute_dtype=torch.bfloat16,
+                        differentiable: bool = False):
     """latent (B, I) -> output dict in (B, H, W, C) layout, deterministic:
     fixed noise, eval thresholds.  The convolutions run in
     ``compute_dtype`` (None = float32); tanh, the Gumbel masks and the
     composite run in float32.  ``threshold`` is the Gumbel keep threshold
-    (reference default 0.5)."""
-    masked = isinstance(G, (DUSty1, DUSty2))
+    (reference default 0.5).
 
-    @torch.no_grad()
+    By default the generator runs without autograd.  ``differentiable=True``
+    freezes G's parameters instead and keeps the graph, so a caller can
+    differentiate the output with respect to the latent (GAN inversion)."""
+    masked = isinstance(G, (DUSty1, DUSty2))
+    if differentiable:
+        G.requires_grad_(False)
+
     def gen(z, threshold: float = 0.5) -> Dict[str, torch.Tensor]:
         if masked:
             out = G(z, compute_dtype=compute_dtype, train=False,
@@ -99,4 +105,4 @@ def make_eval_generator(G, fixed_noise, compute_dtype=torch.bfloat16):
             out = G(z, compute_dtype=compute_dtype)
         return {k: _nhwc(v) for k, v in out.items()}
 
-    return gen
+    return gen if differentiable else torch.no_grad()(gen)

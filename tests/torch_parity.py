@@ -87,3 +87,17 @@ class JaxDraws:
                                 self.dir_repeats)
         return torch.from_numpy(np.array(
             jax.random.normal(keys[repeat], (dim, count), jnp.float32)))
+
+
+def jax_step_noise(key, num_steps, shape):
+    """The per-step latent noise that ``dusty_gan_tpu.utils.inversion.
+    make_inversion_loop`` draws from ``key``, as the port's noise function
+    ``noise(step, shape)``."""
+    draws = [np.array(jax.random.normal(jax.random.fold_in(key, i), shape))
+             for i in range(num_steps)]
+
+    def noise(step, shape_):
+        assert tuple(shape_) == tuple(shape)
+        return torch.from_numpy(draws[step])
+
+    return noise
