@@ -7,7 +7,8 @@
    (one nvcc per source, all started together).
 2. Holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes and at ragged ones, and times both: ``cd_block``
-   (K1), ``nn_dist`` (K2) and ``nn_argmin`` (K3); and the gradient of
+   (K1), ``nn_dist`` (K2) and ``nn_argmin`` (K3), the latter two in every
+   instantiation the launcher can pick; and the gradient of
    ``chamfer_distance`` against autograd through the dense distances.
 3. Drives the synthesis path, ``dusty_gan_torch.cli.evaluate_synthesis``,
    for the full-width DUSty-II generator (configs/model/dusty2_dcgan_eqlr.yaml,
@@ -22,7 +23,8 @@
    Each path's kernel launch counts are set to 0 just before it and read
    just after.
 5. Checks the scores (every key, finite) and, on small inputs, the card's
-   scores, generator output and inversion against the CPU.
+   scores, generator output and inversion against the CPU, and one
+   inversion step's bf16 gradient for z against float32 on the card.
 6. Prints a JSON line of per-kernel numbers, the card line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -61,7 +63,8 @@ from dusty_gan_torch.metrics.cov_mmd_1nna import (  # noqa: E402
     ROW_BLOCK, block_schedule, compute_cov_mmd_1nna)
 from dusty_gan_torch.models.factory import define_G  # noqa: E402
 from dusty_gan_torch.models.losses import masked_loss  # noqa: E402
-from dusty_gan_torch.utils.inversion import make_inversion_loop  # noqa: E402
+from dusty_gan_torch.utils.inversion import (  # noqa: E402
+    latent_noise_strength, make_inversion_loop, project_sphere)
 from dusty_gan_torch.utils.setup import make_eval_generator, make_fixed_noise  # noqa: E402
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3, FP32 outside the
@@ -79,6 +82,9 @@ NUM_STEP, REC_BATCH, SCAN_POINTS = 1000, 512, 64 * 256
 REC_CSV_HEADER = ["", "cd", "accuracy_1", "accuracy_2", "accuracy_3", "rmse",
                   "rmse_log", "abs_rel", "sq_rel", "tol", "drop_gen", "drop_ref"]
 Z_ATOL = 1e-4  # card vs CPU z* after 5 float32 L2 inversion steps (z has unit RMS)
+# one step's bf16 gradient for z vs float32 at full width: relative L2 error
+# (0.082 measured on an H100) and cosine; a wrong gradient is off by ~1
+BF16_GRAD_RTOL, BF16_GRAD_MIN_COS = 0.15, 0.99
 EXPECTED_KEYS = {
     "swd-16", "swd-32", "swd-64", "swd-mean", "jsd", "mmd-cd", "mmd-sample-cd",
     "cov-cd", "1-nn-tp-cd", "1-nn-fp-cd", "1-nn-fn-cd", "1-nn-tn-cd",
@@ -178,67 +184,96 @@ def nn_bound(b: int, n: int, m: int):
     return max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def hold_nn(x, y, got_d, want_d, got_i=None, want_i=None) -> tuple:
+    """One K2 or K3 result against ``nn_reference``'s: distances within
+    rtol 1e-5 / atol 1e-6; indices equal, or, where they differ (the kernel
+    contracts to fused multiply-adds, so a near-tie can round the other
+    way), the two candidates' distances agree within the same tolerance.
+    Returns (max abs error, index mismatches)."""
+    e = (got_d - want_d).abs()
+    if bool((e > CD_ATOL + CD_RTOL * want_d.abs()).any()):
+        raise AssertionError(f"distances disagree with nn_reference at {tuple(x.shape)}"
+                             f"x{tuple(y.shape)}: max abs err {float(e.max())}")
+    if got_i is None:
+        return float(e.max()), 0
+    diff = got_i != want_i
+    if bool(diff.any()):
+        def dist_at(idx):
+            near = torch.gather(y, 1, idx.long()[..., None].expand(-1, -1, 3))
+            return ((x - near) ** 2).sum(-1)[diff]
+        da, db = dist_at(got_i), dist_at(want_i)
+        if bool(((da - db).abs() > CD_ATOL + CD_RTOL * db.abs()).any()):
+            raise AssertionError(f"nn_argmin picks a farther point than nn_reference "
+                                 f"at {tuple(x.shape)}x{tuple(y.shape)}")
+    return float(e.max()), int(diff.sum())
+
+
 def check_nn(dev) -> list:
     """K2 (``nn_dist``) and K3 (``nn_argmin``) against ``nn_reference`` on
-    the card: distances within rtol 1e-5 / atol 1e-6; indices equal, or,
-    where they differ (the kernel contracts to fused multiply-adds, so a
-    near-tie can round the other way), the two candidates' distances agree
-    within the same tolerance.  Times both and their plain versions at the
-    reconstruction shape."""
+    the card (``hold_nn``), at the reconstruction shape (512, 16,384)², whose
+    timed outputs are held too, and at shapes that take each of the
+    kernel's four instantiations (8, 4, 2 and 1 query points a thread):
+    small batches come from a small ``--batch-size`` and from the demo's
+    few scans.  Times both and their plain versions at the reconstruction
+    shape."""
+    lib = kernels.load("nn")
     g = torch.Generator().manual_seed(2)
-    shapes = [(4, SCAN_POINTS, SCAN_POINTS),  # a fifth of the points at the origin
+    shapes = [(5, SCAN_POINTS, SCAN_POINTS),  # a batch of 5 scans
+              (4, SCAN_POINTS, SCAN_POINTS),  # a fifth of the points at the origin
               (3, 300, 5000),                 # ragged
               (5, 1000, 300),                 # N != M
               (2, 3000, 5000)]                # M above one shared-memory chunk
     err = {"nn_dist": 0.0, "nn_argmin": 0.0}
     mismatches = compared = 0
+    taken = {}
+
+    def hold(x, y, d2, d3, i3, want_d, want_i):
+        nonlocal mismatches, compared
+        b, n, m = x.shape[0], x.shape[1], y.shape[1]
+        e2, _ = hold_nn(x, y, d2, want_d)
+        e3, mis = hold_nn(x, y, d3, want_d, i3, want_i)
+        err["nn_dist"], err["nn_argmin"] = max(err["nn_dist"], e2), max(err["nn_argmin"], e3)
+        mismatches, compared = mismatches + mis, compared + i3.numel()
+        qpt = lib.nn_points_per_thread(b, n)
+        taken[qpt] = taken.get(qpt, []) + [(b, n, m)]
+        print(f"nn ({b},{n})x({b},{m}), {qpt} query points a thread: nn_dist "
+              f"max_abs_err {e2:.3e}, nn_argmin max_abs_err {e3:.3e}, index "
+              f"mismatches {mis} of {i3.numel()}")
+
     for b, n, m in shapes:
         x, y = clouds(g, b, n, dev), clouds(g, b, m, dev)
         d2 = chamfer_cuda.nn_dist(x, y)
         d3, i3 = chamfer_cuda.nn_argmin(x, y)
         torch.cuda.synchronize()
-        want_d, want_i = chamfer_cuda.nn_reference(x, y, need_idx=True)
-        for name, d in (("nn_dist", d2), ("nn_argmin", d3)):
-            e = (d - want_d).abs()
-            if bool((e > CD_ATOL + CD_RTOL * want_d.abs()).any()):
-                raise AssertionError(f"{name} disagrees with nn_reference at "
-                                     f"({b},{n})x({b},{m}): max abs err {float(e.max())}")
-            err[name] = max(err[name], float(e.max()))
-        diff = i3 != want_i
-        if bool(diff.any()):
-            def dist_at(idx):
-                near = torch.gather(y, 1, idx.long()[..., None].expand(-1, -1, 3))
-                return ((x - near) ** 2).sum(-1)[diff]
-            da, db = dist_at(i3), dist_at(want_i)
-            if bool(((da - db).abs() > CD_ATOL + CD_RTOL * db.abs()).any()):
-                raise AssertionError(f"nn_argmin picks a farther point than "
-                                     f"nn_reference at ({b},{n})x({b},{m})")
-        mismatches += int(diff.sum())
-        compared += diff.numel()
-        print(f"nn ({b},{n})x({b},{m}): nn_dist max_abs_err {err['nn_dist']:.3e}, "
-              f"nn_argmin max_abs_err {err['nn_argmin']:.3e}, index mismatches "
-              f"{int(diff.sum())} of {diff.numel()}")
+        hold(x, y, d2, d3, i3, *chamfer_cuda.nn_reference(x, y, need_idx=True))
 
     b, n = REC_BATCH, SCAN_POINTS
     x, y = clouds(g, b, n, dev), clouds(g, b, n, dev)
     bound_ms, bound_by = nn_bound(b, n, n)
-    entries = []
-    for name, fn, plain, line in (
-            ("nn_dist", chamfer_cuda.nn_dist,
-             lambda: chamfer_cuda.nn_reference(x, y, need_idx=False), 355),
-            ("nn_argmin", chamfer_cuda.nn_argmin,
-             lambda: chamfer_cuda.nn_reference(x, y, need_idx=True), 346)):
-        ms = cuda_ms(lambda: fn(x, y), iters=5)
-        plain_ms = cuda_ms(plain, iters=1, warmup=0)
+    got, want, entries = {}, {}, []
+    for name, fn, need_idx, line in (("nn_dist", chamfer_cuda.nn_dist, False, 355),
+                                     ("nn_argmin", chamfer_cuda.nn_argmin, True, 346)):
+        ms = cuda_ms(lambda: got.__setitem__(name, fn(x, y)), iters=5)
+        plain_ms = cuda_ms(lambda: want.__setitem__(
+            name, chamfer_cuda.nn_reference(x, y, need_idx=need_idx)), iters=1, warmup=0)
         print(f"{name} ({b},{n})x({b},{n}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
               f"bound {bound_ms:.3f} ms ({bound_by})")
         entries.append({"name": name, "route": "cuda",
                         "source": "dusty_gan_torch/csrc/nn.cu",
                         "replaces": f"dusty_gan_tpu/metrics/chamfer_pallas.py:{line}",
-                        "launches": None, "max_abs_err": err[name], "ms": ms,
+                        "launches": None, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": None})
+    if not torch.equal(want["nn_dist"][0], want["nn_argmin"][0]):
+        raise AssertionError("nn_reference's distances differ with and without the index")
+    hold(x, y, got["nn_dist"], *got["nn_argmin"], *want["nn_argmin"])
+    if set(taken) != {8, 4, 2, 1}:
+        raise AssertionError(f"the checks took the instantiations {sorted(taken)}, "
+                             "not all of 8, 4, 2 and 1 query points a thread")
+    for e in entries:
+        e["max_abs_err"] = err[e["name"]]
     entries[1]["index_mismatches"] = f"{mismatches} of {compared}"
+    print("nn instantiations checked:", json.dumps({str(k): v for k, v in taken.items()}))
     entries[1]["note"] = ("no ported CLI path runs nn_argmin yet (its caller is the "
                           "demo's chamfer inversion); launches are those of the "
                           "reconstruction path, 0")
@@ -389,9 +424,8 @@ def profile_inversion(dev, run: dict, steps: int = 10) -> None:
     from torch.profiler import ProfilerActivity, profile
     from torch.utils.flop_counter import FlopCounterMode
 
-    G = copy.deepcopy(run["G"]).to(dev)
-    gen = make_eval_generator(G, make_fixed_noise(G, (64, 256), device=dev),
-                              differentiable=True)
+    G = copy.deepcopy(run["G"]).to(dev).requires_grad_(False)
+    gen = make_eval_generator(G, make_fixed_noise(G, (64, 256), device=dev))
     g = torch.Generator(device=dev).manual_seed(4)
     ref = torch.rand((REC_BATCH, 64, 256, 1), generator=g, device=dev)
     mask = (torch.rand((REC_BATCH, 64, 256, 1), generator=g, device=dev) > 0.2).float()
@@ -445,9 +479,9 @@ def inversion_card_vs_cpu(dev, run: dict, steps: int = 5) -> None:
         z = {}
         for where in ("cuda", "cpu"):
             d = dev if where == "cuda" else torch.device("cpu")
-            G = copy.deepcopy(run["G"]).to(d)
+            G = copy.deepcopy(run["G"]).to(d).requires_grad_(False)
             fn = {k: v.to(d) for k, v in fixed.items()}
-            gen = make_eval_generator(G, fn, compute_dtype=None, differentiable=True)
+            gen = make_eval_generator(G, fn, compute_dtype=None)
             r, m = ref.to(d), mask.to(d)
             loop = make_inversion_loop(
                 lambda zz: masked_loss(r, (gen(zz)["depth_orig"] + 1.0) / 2.0, m, distance),
@@ -459,6 +493,40 @@ def inversion_card_vs_cpu(dev, run: dict, steps: int = 5) -> None:
               f"z* max_abs_err {err:.3e} ({held})")
         if distance == "l2" and err > Z_ATOL:
             raise AssertionError(f"z* on the card vs the CPU: {err}")
+
+
+def inversion_grad_bf16(dev, run, b: int = 8) -> None:
+    """The gradient for z of one inversion step (the masked L1 at step 0's
+    noise-perturbed latent) through the full-width generator with bf16
+    convolutions, as the reconstruction path runs it, against the same
+    gradient with float32 convolutions, both on the card.  Held per sample:
+    the L2 norm of the difference within BF16_GRAD_RTOL of the float32
+    gradient's, and their cosine at least BF16_GRAD_MIN_COS; bf16 keeps 8
+    significant bits, so each layer, forward and back, adds relative errors
+    of a few 1e-3."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    ref = torch.rand((b, 64, 256, 1), generator=g, device=dev)
+    mask = (torch.rand((b, 64, 256, 1), generator=g, device=dev) > 0.2).float()
+    z = project_sphere(torch.randn((b, 512), generator=g, device=dev))
+    shift = latent_noise_strength(0, NUM_STEP) * torch.randn((b, 512), generator=g, device=dev)
+    G = copy.deepcopy(run["G"]).to(dev).requires_grad_(False)
+    fixed = make_fixed_noise(G, (64, 256), device=dev)
+    grads = []
+    for dtype in (torch.bfloat16, None):
+        gen = make_eval_generator(G, fixed, compute_dtype=dtype)
+        latent = z.clone().requires_grad_(True)
+        inv = (gen(latent + shift)["depth_orig"] + 1.0) / 2.0
+        (grad,) = torch.autograd.grad(masked_loss(ref, inv, mask, "l1").sum(), latent)
+        grads.append(grad)
+    bf16, f32 = grads
+    rel = (bf16 - f32).norm(dim=1) / f32.norm(dim=1)
+    cos = torch.nn.functional.cosine_similarity(bf16, f32, dim=1)
+    print(f"inversion gradient bf16 vs float32 on the card (batch {b}, l1): relative "
+          f"L2 error max {float(rel.max()):.3e} (held at {BF16_GRAD_RTOL}), cosine "
+          f"min {float(cos.min()):.6f} (held at {BF16_GRAD_MIN_COS})")
+    if float(rel.max()) > BF16_GRAD_RTOL or float(cos.min()) < BF16_GRAD_MIN_COS:
+        raise AssertionError(f"bf16 gradient for z vs float32: relative error "
+                             f"{float(rel.max())}, cosine {float(cos.min())}")
 
 
 def small_input_agreement(dev, G) -> None:
@@ -525,6 +593,7 @@ def main(argv=None) -> int:
           f"{cd_launches // 2}; in one 5000-scan run: {protocol_launches()}")
     profile_inversion(dev, run)
     inversion_card_vs_cpu(dev, run)
+    inversion_grad_bf16(dev, run)
     small_input_agreement(dev, run["G"])
 
     print(json.dumps({"kernels": entries}))

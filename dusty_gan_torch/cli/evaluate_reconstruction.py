@@ -71,14 +71,21 @@ def reconstruct_batch(gen, lidar, batch: Dict[str, np.ndarray], z0: torch.Tensor
                       noise: NoiseFn, is_dusty: bool, distance: str = "l1",
                       num_step: int = 1000, tol: float = 0.0,
                       stats: Optional[Dict[str, float]] = None) -> Dict[str, torch.Tensor]:
-    """Invert one test batch and score the reconstruction.  ``gen`` is a
-    differentiable eval generator; ``batch`` holds the dataset's (B, H, W, 1)
+    """Invert one test batch and score the reconstruction.  ``gen`` is an
+    eval generator over a frozen G; ``batch`` holds the dataset's (B, H, W, 1)
     depth and mask and (B, H, W, 3) xyz.  Returns the per-sample (B,)
     columns of ``RESULT_KEYS`` except ``tol`` and ``index``.  ``stats``,
     when given, accumulates the mean loss at z0 and at z* and the seconds
-    of the inversion, the Chamfer distance and the rest."""
+    of the inversion, the Chamfer distance and the rest; only then are the
+    loss at z0 computed and the device synchronised between stages."""
     device = z0.device
-    t0 = time.perf_counter()
+
+    def clock() -> float:
+        if stats is not None:
+            synchronize(device)
+        return time.perf_counter()
+
+    t0 = clock()
     mask_ref = torch.from_numpy(batch["mask"]).to(device)
     inv_ref = lidar.invert_depth(torch.from_numpy(batch["depth"]).to(device)) * mask_ref
     xyz_ref = torch.from_numpy(batch["xyz"]).to(device)
@@ -89,24 +96,21 @@ def reconstruct_batch(gen, lidar, batch: Dict[str, np.ndarray], z0: torch.Tensor
         inv_gen = tanh_to_sigmoid(gen(latent)[key])
         return masked_loss(inv_ref, inv_gen, mask_ref, distance)
 
-    with torch.no_grad():
-        loss0 = loss_fn(project_sphere(z0.float()))
-    synchronize(device)
-    t1 = time.perf_counter()
+    if stats is not None:
+        with torch.no_grad():
+            loss0 = loss_fn(project_sphere(z0.float()))
+    t1 = clock()
     z_star, loss = make_inversion_loop(loss_fn, num_steps=num_step, lr=0.1)(z0, noise)
-    synchronize(device)
-    t2 = time.perf_counter()
+    t2 = clock()
 
     with torch.no_grad():
         raw = gen(z_star)
         out = postprocess(raw, lidar, tol=tol)
         points_gen = out["points"].reshape(b, -1, 3)
         points_ref = xyz_ref.reshape(b, -1, 3)
-        synchronize(device)
-        t3 = time.perf_counter()
+        t3 = clock()
         res = {"cd": compute_cd(points_ref, points_gen)}
-        synchronize(device)
-        t4 = time.perf_counter()
+        t4 = clock()
         depth_gen = lidar.revert_depth(tanh_to_sigmoid(raw[key]), norm=False)
         depth_ref = lidar.revert_depth(inv_ref, norm=False)
         res.update(compute_depth_accuracy(depth_ref, depth_gen, mask_ref))
@@ -121,8 +125,7 @@ def reconstruct_batch(gen, lidar, batch: Dict[str, np.ndarray], z0: torch.Tensor
             drop = (1 - m).sum(dim=(1, 2, 3)) / (h * w)
         res["drop_gen"] = drop
         res["drop_ref"] = (1 - mask_ref).sum(dim=(1, 2, 3)) / (h * w)
-    synchronize(device)
-    t5 = time.perf_counter()
+    t5 = clock()
     if stats is not None:
         for k, v in (("loss_z0", float(loss0.mean())), ("loss_zstar", float(loss.mean())),
                      ("inversion_s", t2 - t1), ("cd_s", t4 - t3),
@@ -153,10 +156,9 @@ def main(argv=None, stats: Optional[Dict[str, float]] = None):
             "--multihost is not yet ported to dusty_gan_torch; use "
             "dusty_gan_tpu.cli.evaluate_reconstruction for it")
     device = resolve_device(args.device)
-    stats = {} if stats is None else stats
 
     cfg, G, lidar, fixed_noise = setup(args.model_path, args.config_path, device)
-    gen = make_eval_generator(G, fixed_noise, differentiable=True)
+    gen = make_eval_generator(G, fixed_noise)
     is_dusty = "dusty" in str(cfg.model.gen.arch)
     in_ch = int(cfg.model.gen.in_ch)
     loader = Loader(define_dataset(cfg.dataset, phase="test"), args.batch_size)
@@ -170,7 +172,8 @@ def main(argv=None, stats: Optional[Dict[str, float]] = None):
             gen, lidar, batch, initial_latent(bi, b, in_ch, device),
             step_noise(bi, device), is_dusty, args.distance, args.num_step,
             args.tol, stats)
-        stats["batches"] = stats.get("batches", 0) + 1
+        if stats is not None:
+            stats["batches"] = stats.get("batches", 0) + 1
         for k in RESULT_KEYS:
             if k == "tol":
                 results[k] += [args.tol] * b

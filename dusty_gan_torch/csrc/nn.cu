@@ -28,8 +28,9 @@
 // What the design does about it (the shape of cd_block.cu):
 //   * grid (query tiles, B): a 16,384-point query cloud is split over
 //     several blocks; the launcher picks the query points per thread
-//     (kQPT in 8/4/2/1) so that even a batch of 4 gives at least one block
-//     per SM, and a batch of 512 keeps 8 points per thread;
+//     (kQPT in 8/4/2/1) so that even a small batch (a CLI run with a small
+//     --batch-size, the demo's few scans) gives at least one block per SM
+//     of the current device, and a batch of 512 keeps 8 points per thread;
 //   * the partner cloud is staged in shared memory as SoA in chunks of
 //     kChunk points, so any N and M work and every thread of a block reads
 //     the same partner point at once (a broadcast, no bank conflicts);
@@ -111,11 +112,15 @@ nn_kernel(const float* __restrict__ x, const float* __restrict__ y,
   }
 }
 
-// Query points per thread: 8 unless that leaves fewer blocks than SMs.
+// Query points per thread: 8 unless that leaves fewer blocks than the
+// current device has SMs.
 int points_per_thread(int B, int N) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   for (int qpt = 8; qpt > 1; qpt >>= 1) {
     const long long tiles = (N + kThreads * qpt - 1) / (kThreads * qpt);
-    if (tiles * B >= 132) return qpt;
+    if (tiles * B >= sms) return qpt;
   }
   return 1;
 }
@@ -156,6 +161,10 @@ int nn_argmin_launch(const float* x, const float* y, float* dist, int* idx,
                      int B, int N, int M, void* stream) {
   return nn_launch<true>(x, y, dist, idx, B, N, M, stream);
 }
+
+// The query points per thread (the kernel instantiation) that a launch of
+// B clouds of N query points takes on the current device.
+int nn_points_per_thread(int B, int N) { return points_per_thread(B, N); }
 
 const char* nn_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -35,6 +35,7 @@ SIGNATURES = {
     "nn": {
         "nn_dist_launch": (_I, [_P, _P, _P, _I, _I, _I, _P]),
         "nn_argmin_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
+        "nn_points_per_thread": (_I, [_I, _I]),
         "nn_error_string": (ctypes.c_char_p, [_I]),
     },
 }

@@ -42,8 +42,11 @@ def make_fixed_noise(G, shape, seed: int = FIXED_NOISE_SEED, device="cpu"):
 
 def setup(model_path: str, config_path: str,
           device) -> Tuple[Config, torch.nn.Module, Lidar, Optional[object]]:
-    """Returns (cfg, the EMA generator in eval mode on ``device``, lidar,
-    fixed_noise)."""
+    """Returns (cfg, the EMA generator on ``device`` in eval mode with its
+    parameters frozen, lidar, fixed_noise).  Frozen parameters build no
+    graph for G's weights: the generator's output carries a gradient only
+    for a latent that asks for one (GAN inversion), as the reference's
+    ``set_requires_grad(G, False)``."""
     if not osp.exists(model_path):
         raise FileNotFoundError(f"model checkpoint not found: {model_path}")
     if not osp.exists(config_path):
@@ -60,7 +63,7 @@ def setup(model_path: str, config_path: str,
     G = define_G(cfg)
     sd, step = load_reference_checkpoint(model_path, "G_ema")
     G.load_state_dict(sd, strict=True)
-    G = G.to(device).eval()
+    G = G.to(device).eval().requires_grad_(False)
     print(f"#images: {step} (reference .pth)")
 
     angle_file = None
@@ -82,20 +85,15 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
-def make_eval_generator(G, fixed_noise, compute_dtype=torch.bfloat16,
-                        differentiable: bool = False):
+def make_eval_generator(G, fixed_noise, compute_dtype=torch.bfloat16):
     """latent (B, I) -> output dict in (B, H, W, C) layout, deterministic:
     fixed noise, eval thresholds.  The convolutions run in
     ``compute_dtype`` (None = float32); tanh, the Gumbel masks and the
     composite run in float32.  ``threshold`` is the Gumbel keep threshold
-    (reference default 0.5).
-
-    By default the generator runs without autograd.  ``differentiable=True``
-    freezes G's parameters instead and keeps the graph, so a caller can
-    differentiate the output with respect to the latent (GAN inversion)."""
+    (reference default 0.5).  Autograd is left as the caller has it: with
+    G frozen (``setup``) the output carries a gradient for the latent
+    alone, and only when the latent asks for one."""
     masked = isinstance(G, (DUSty1, DUSty2))
-    if differentiable:
-        G.requires_grad_(False)
 
     def gen(z, threshold: float = 0.5) -> Dict[str, torch.Tensor]:
         if masked:
@@ -105,4 +103,4 @@ def make_eval_generator(G, fixed_noise, compute_dtype=torch.bfloat16,
             out = G(z, compute_dtype=compute_dtype)
         return {k: _nhwc(v) for k, v in out.items()}
 
-    return gen if differentiable else torch.no_grad()(gen)
+    return gen

@@ -137,9 +137,11 @@ def test_wrappers_reject_bad_inputs(fn, bad):
 
 def test_nn_library_is_declared():
     assert set(kernels.SIGNATURES["nn"]) == {"nn_dist_launch", "nn_argmin_launch",
-                                            "nn_error_string"}
+                                            "nn_points_per_thread", "nn_error_string"}
     assert kernels.library_path("nn").name.startswith("libnn-")
-    assert (kernels.CSRC / "nn.cu").exists()
+    src = (kernels.CSRC / "nn.cu").read_text()
+    for fn in kernels.SIGNATURES["nn"]:
+        assert f" {fn}(" in src, fn
 
 
 def _weights(seed, b, n, m):

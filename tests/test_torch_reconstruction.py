@@ -201,11 +201,12 @@ def test_inversion_loop_quadratic():
 
 def _generators(arch):
     """The narrow JAX generator and the port's with the same weights and
-    fixed Gumbel noise, float32 convolutions on both sides."""
+    fixed Gumbel noise, float32 convolutions on both sides; the port's G
+    frozen, as ``setup`` returns it."""
     rng = np.random.RandomState(5)
     pix, img = logistic(rng, (1,) + SHAPE + (1,)), logistic(rng, (1, 1, 1, 1))
     Gj, params = jax_generator(arch, SHAPE)
-    Gt = port_generator(arch, SHAPE, params)
+    Gt = port_generator(arch, SHAPE, params).requires_grad_(False)
     jnoise = {"pixel": jnp.asarray(pix), "image": jnp.asarray(img)}
     tnoise = {"pixel": nchw(pix), "image": nchw(img)}
     if arch.startswith("dusty1"):
@@ -213,15 +214,23 @@ def _generators(arch):
     elif not arch.startswith("dusty"):
         jnoise = tnoise = None
     gen_j = jax_make_eval_generator(Gj, params, jnoise, compute_dtype=jnp.float32)
-    gen_t = make_eval_generator(Gt, tnoise, compute_dtype=None, differentiable=True)
+    gen_t = make_eval_generator(Gt, tnoise, compute_dtype=None)
     return gen_j, gen_t, Gt
 
 
-def test_differentiable_generator_freezes_weights():
-    _, gen_t, Gt = _generators("dusty2/dcgan_eqlr")
-    assert not any(p.requires_grad for p in Gt.parameters())
-    z = torch.randn(2, IN_CH, requires_grad=True)
-    (g,) = torch.autograd.grad(gen_t(z)["depth_orig"].sum(), z)
+def test_differentiable_generator_freezes_weights(cli_run):
+    """``setup`` returns G frozen; the eval generator over it carries a
+    gradient for a latent that asks for one, and builds no graph for a
+    latent that does not."""
+    from dusty_gan_torch.utils.setup import setup
+
+    cfg, G, _, fixed_noise = setup(cli_run["pth"], cli_run["cfg"], "cpu")
+    assert not any(p.requires_grad for p in G.parameters())
+    gen = make_eval_generator(G, fixed_noise, compute_dtype=None)
+    in_ch = int(cfg.model.gen.in_ch)
+    assert not gen(torch.randn(2, in_ch))["depth_orig"].requires_grad
+    z = torch.randn(2, in_ch, requires_grad=True)
+    (g,) = torch.autograd.grad(gen(z)["depth_orig"].sum(), z)
     assert g.shape == z.shape and float(g.abs().sum()) > 0
 
 

@@ -47,7 +47,7 @@ def pipelines(tmp_path_factory):
     z = rng.randn(B, IN_CH).astype(np.float32)
     pix, img = logistic(rng, (1,) + SHAPE + (1,)), logistic(rng, (1, 1, 1, 1))
     Gj, params = jax_generator(ARCH, SHAPE)
-    Gt = port_generator(ARCH, SHAPE, params)
+    Gt = port_generator(ARCH, SHAPE, params).requires_grad_(False)  # as setup returns it
     key = jax.random.PRNGKey(0)
 
     # ---- JAX package
