@@ -1,6 +1,6 @@
 """Smoke run of dusty_gan_torch on one CUDA GPU.
 
-    python3 chip_smoke.py [--num-test 512] [--num-step 1000]
+    python3 chip_smoke.py [--num-test 512] [--num-step 1000] [--emd-num-test 256]
 
 1. Prints the card's name and power limit and the torch version, and
    builds every CUDA kernel of the port from ``dusty_gan_torch/csrc``
@@ -8,13 +8,17 @@
 2. Holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes and at ragged ones, and times both: ``cd_block``
    (K1), ``nn_dist`` (K2) and ``nn_argmin`` (K3), the latter two in every
-   instantiation the launcher can pick; and the gradient of
-   ``chamfer_distance`` against autograd through the dense distances.
+   instantiation the launcher can pick, ``emd_block`` (K4, also bit for
+   bit across two launches) and ``emd_pair`` (K5); and the gradients of
+   ``chamfer_distance`` and ``earth_mover_distance`` against autograd
+   through the dense plain versions.
 3. Drives the synthesis path, ``dusty_gan_torch.cli.evaluate_synthesis``,
    for the full-width DUSty-II generator (configs/model/dusty2_dcgan_eqlr.yaml,
    64x256 KITTI) with seeded random weights on a synthetic KITTI tree:
    512 test scans (``--num-test``; 5000 is the paper's protocol),
-   2048-point clouds, and again with --compute-gt.
+   2048-point clouds, and again with --compute-gt; then the EMD path,
+   ``--metrics cd,emd`` on 256 generated scans (``--emd-num-test``), and
+   one ``--calibrate-drop-rate`` run (CD only) on 256.
 4. Drives the reconstruction path,
    ``dusty_gan_torch.cli.evaluate_reconstruction``, on the same generator
    and tree: one batch of 512 test scans, ``--num-step`` inversion steps,
@@ -57,14 +61,18 @@ from dusty_gan_torch.cli import evaluate_reconstruction as er  # noqa: E402
 from dusty_gan_torch.cli import evaluate_synthesis as es  # noqa: E402
 from dusty_gan_torch.config import compose, save_config  # noqa: E402
 from dusty_gan_torch.data.synthetic import build_synthetic_kitti  # noqa: E402
-from dusty_gan_torch.metrics import chamfer_cuda  # noqa: E402
+from dusty_gan_torch.metrics import chamfer_cuda, emd_cuda  # noqa: E402
 from dusty_gan_torch.metrics.chamfer import chamfer_distance  # noqa: E402
+from dusty_gan_torch.metrics.emd import (  # noqa: E402
+    earth_mover_distance, earth_mover_distance_dense)
 from dusty_gan_torch.metrics.cov_mmd_1nna import (  # noqa: E402
     ROW_BLOCK, block_schedule, compute_cov_mmd_1nna)
 from dusty_gan_torch.models.factory import define_G  # noqa: E402
 from dusty_gan_torch.models.losses import masked_loss  # noqa: E402
 from dusty_gan_torch.utils.inversion import (  # noqa: E402
     latent_noise_strength, make_inversion_loop, project_sphere)
+from dusty_gan_torch.utils.calibration import (  # noqa: E402
+    calibrate_mask_threshold, drop_rate_2d)
 from dusty_gan_torch.utils.setup import make_eval_generator, make_fixed_noise  # noqa: E402
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3, FP32 outside the
@@ -91,6 +99,41 @@ EXPECTED_KEYS = {
     "1-nn-precision-cd", "1-nn-recall-cd", "1-nn-accuracy_t-cd",
     "1-nn-accuracy_f-cd", "1-nn-accuracy-cd", "#test", "#points",
 }
+EMD_KEYS = {k[:-2] + "emd" for k in EXPECTED_KEYS if k.endswith("-cd")}
+CALIB_KEYS = {"mask_threshold", "drop_rate/target", "drop_rate/calibrated", "drop_rate/fake"}
+EMD_NUM_TEST = 256  # scans of the --metrics cd,emd run (the protocol's 5000 cut)
+# calibrated against target drop rate: 24 bisection steps close the threshold
+# to 6e-8, but float32 keep probabilities tie, so the last step can move a
+# few hundred of the 8.4M calibration pixels (the JAX package's own test
+# allows 5e-3)
+CALIB_ATOL = 1e-4
+# EMD: the kernels against the dense plain version (explicit differences on
+# both sides, sums in other orders).  Costs rtol 5e-4, the JAX package's
+# kernel-against-dense tolerance (tests/test_emd_pallas.py), with a 1e-6
+# guard for exact zeros.  A self pair's cost (~1e-3 at 2048 points, scale
+# 0.3) is the difference of sum |x|^2 R + sum |y|^2 C ~ 550 and 2 sum x.V:
+# float32 leaves a few ulps of 550 (~6e-5 each), so the diagonal is held
+# at atol 5e-3.
+EMD_RTOL, EMD_ATOL, EMD_DIAG_ATOL = 5e-4, 1e-6, 5e-3
+# K5's residues: at N = M, R, C, V and U within atol 5e-4 (~1e-4 seen).  At
+# a ragged pair (300 x 200, multi_r = 1) a third of the row mass stays
+# unmatched, and which rows keep it moves with the order of float32 sums:
+# C stays within 5e-4, single entries of R, V and U move by ~1e-2, so they
+# are held at 5e-2 there.
+PAIR_ATOL, PAIR_RAGGED_ATOL = 5e-4, 5e-2
+# earth_mover_distance's gradient: at (2, 128)^2, uniform in [-1, 1] as
+# tests/test_emd_pallas.py, atol 2e-4 against autograd through the float32
+# dense cost.  At 2048 points float32 itself moves single entries by up to
+# ~4e-3 (the dense float32 gradient against float64, 8 draws on the CPU), so
+# there the gradient is held against the float64 dense gradient in relative
+# L2 norm: float32 reaches up to 3.5e-4 on those draws; a wrong gradient
+# is off by ~1.
+EMD_GRAD_ATOL, EMD_GRAD_REL_L2 = 2e-4, 2e-3
+# per distance and annealing round (rounds 0-8; round 9 is O(N + M)): 8 FLOP
+# for d, 1 for level * d, 2 row sum, 2 column sum, 2 match mass, 6 for V;
+# K5 adds 6 for U.  One exp besides, on the special function units.
+EMD_FLOP_PER_DISTANCE_ROUND, EMD_PAIR_EXTRA_FLOP, EMD_ROUNDS = 21, 6, 9
+EMD_FLOP_PER_POINT = 20  # round 9 and the cost, per point of either cloud
 
 
 def card_line() -> str:
@@ -311,6 +354,161 @@ def check_chamfer_grad(dev) -> None:
                                  f"with dense autograd: {float(e.max())}")
 
 
+def gaussian(gen: torch.Generator, b: int, n: int, dev, scale: float = 0.3) -> torch.Tensor:
+    """Gaussian clouds of standard deviation 0.3, bench.py's EMD clouds."""
+    return (torch.randn((b, n, 3), generator=gen) * scale).to(dev)
+
+
+def emd_bound(pairs: int, n: int, m: int, nbytes: int, with_u: bool):
+    """(bound ms, bound_by) of an auction over ``pairs`` pairs: the larger
+    of ``nbytes`` (each input read once, each output written once) over the
+    memory rate and the FP32 operations over the FP32 rate."""
+    flop_d = EMD_FLOP_PER_DISTANCE_ROUND + (EMD_PAIR_EXTRA_FLOP if with_u else 0)
+    flops = pairs * (EMD_ROUNDS * flop_d * n * m + EMD_FLOP_PER_POINT * (n + m))
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def hold_emd(name: str, got, want, atol: float, rtol: float, diag=None) -> float:
+    """|got - want| <= atol + rtol |want| (``diag``: a mask of entries held at
+    EMD_DIAG_ATOL instead); returns the largest absolute error."""
+    err = (got - want).abs()
+    lim = atol + rtol * want.abs()
+    if diag is not None:
+        lim = torch.where(diag, torch.full_like(lim, EMD_DIAG_ATOL), lim)
+    print(f"{name}: max_abs_err {float(err.max()):.3e} (rtol {rtol}, atol {atol}"
+          + (f", diagonal atol {EMD_DIAG_ATOL}" if diag is not None else "") + ")")
+    if bool((err > lim).any()):
+        raise AssertionError(f"{name} disagrees with its plain version: "
+                             f"{int((err > lim).sum())} entries, max abs err {float(err.max())}")
+    return float(err.max())
+
+
+def check_emd_block(dev) -> dict:
+    """K4 against ``emd_block_reference`` on the card: (3, 4) x 2048^2 at
+    bench.py's scale, a self block, N != M with the integer mass split, a
+    ragged pair and a block with all-zero rows (blocked_matrix's padding);
+    bit for bit across two launches; times the kernel per (16, 512) x 2048^2
+    block, the protocol's, and the plain version per pair."""
+    if kernels.load("emd").emd_max_points() != emd_cuda.MAX_POINTS:
+        raise AssertionError("emd_cuda.MAX_POINTS is not csrc/emd.cu's kMaxPoints")
+    g = torch.Generator().manual_seed(7)
+    x = gaussian(g, 4, NUM_POINTS, dev)
+    zero_rows = torch.cat([torch.zeros((2, 512, 3), device=dev), gaussian(g, 2, 512, dev)])
+    cases = [("(3,2048)x(4,2048)", gaussian(g, 3, NUM_POINTS, dev), x, None),
+             ("self (4,2048)", x, x, torch.eye(4, dtype=torch.bool, device=dev)),
+             ("(2,256)x(3,128)", gaussian(g, 2, 256, dev), gaussian(g, 3, 128, dev), None),
+             ("(2,128)x(2,384)", gaussian(g, 2, 128, dev), gaussian(g, 2, 384, dev), None),
+             ("(2,300)x(2,200)", gaussian(g, 2, 300, dev), gaussian(g, 2, 200, dev), None),
+             ("zero rows (4,512)x(3,512)", zero_rows, gaussian(g, 3, 512, dev), None)]
+    max_abs = 0.0
+    for name, rows, cols, diag in cases:
+        got = emd_cuda.emd_block(rows, cols)
+        torch.cuda.synchronize()
+        want = emd_cuda.emd_block_reference(rows, cols)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"emd_block {name}: non-finite costs")
+        max_abs = max(max_abs, hold_emd(f"emd_block {name}", got, want, EMD_ATOL,
+                                        EMD_RTOL, diag))
+    rows, cols = cases[0][1], cases[0][2]
+    if not torch.equal(emd_cuda.emd_block(rows, cols), emd_cuda.emd_block(rows, cols)):
+        raise AssertionError("emd_block gives other bits on a second launch")
+    print("emd_block: two launches on one input are equal bit for bit")
+
+    r, c, n = ROW_BLOCK, CD_BATCH, NUM_POINTS
+    rows, cols = gaussian(g, r, n, dev), gaussian(g, c, n, dev)
+    ms = cuda_ms(lambda: emd_cuda.emd_block(rows, cols), iters=2)
+    few = 4  # the plain version per pair, on a handful of pairs
+    plain_pair_ms = cuda_ms(lambda: emd_cuda.emd_block_reference(rows[:1], cols[:few]),
+                            iters=2) / few
+    bound_ms, bound_by = emd_bound(r * c, n, n, 4 * (rows.numel() + cols.numel() + r * c),
+                                   with_u=False)
+    print(f"emd_block ({r},{n})x({c},{n}): kernel {ms:.3f} ms ({ms / (r * c) * 1e3:.3f} us "
+          f"a pair), plain {plain_pair_ms:.3f} ms a pair, bound {bound_ms:.3f} ms "
+          f"({bound_by}); {r * c / ms * 1e3:.0f} pairs/s")
+    return {"name": "emd_block", "route": "cuda", "source": "dusty_gan_torch/csrc/emd.cu",
+            "replaces": "dusty_gan_tpu/metrics/emd_pallas.py:307",
+            "launches": None, "max_abs_err": max_abs, "ms": ms,
+            "plain_ms": plain_pair_ms * r * c, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "shape": f"({r},{n})x({c},{n}) block",
+            "plain_ms_per_pair": plain_pair_ms,
+            "note": f"plain_ms is plain_ms_per_pair, measured on {few} pairs, "
+                    f"times the block's {r * c} pairs"}
+
+
+def check_emd_pair(dev) -> dict:
+    """K5 against ``emd_pair_reference`` on the card at (4, 2048)^2 and a
+    ragged (2, 300) x (2, 200): cost, R, C, V and U; the gradient of
+    ``earth_mover_distance`` against autograd through the dense plain cost
+    with the match detached, at (2, 128)^2 and, against float64, at
+    (2, 2048)^2; times the kernel per (512, 2048)^2 launch and the plain
+    version per pair."""
+    g = torch.Generator().manual_seed(8)
+    max_abs = 0.0
+    for name, b, n, m, atol in (("(4,2048)^2", 4, NUM_POINTS, NUM_POINTS, PAIR_ATOL),
+                                ("(2,300)x(2,200)", 2, 300, 200, PAIR_RAGGED_ATOL)):
+        x, y = gaussian(g, b, n, dev), gaussian(g, b, m, dev)
+        got = emd_cuda.emd_pair(x, y)
+        torch.cuda.synchronize()
+        want = emd_cuda.emd_pair_reference(x, y)
+        for part, gt, wt in zip(("cost", "R", "C", "V", "U"), got, want):
+            if part == "cost":
+                e = hold_emd(f"emd_pair {name} cost", gt, wt, EMD_ATOL, EMD_RTOL)
+            else:
+                part_atol = PAIR_ATOL if part == "C" else atol
+                e = hold_emd(f"emd_pair {name} {part}", gt, wt, part_atol, 0.0)
+            max_abs = max(max_abs, e)
+
+    def weighted_grads(fn, x, y):
+        wts = torch.tensor([0.7, -1.3], dtype=x.dtype, device=dev)
+        tx, ty = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+        (fn(tx, ty) * wts).sum().backward()
+        return tx.grad, ty.grad
+
+    x = (torch.rand((2, 128, 3), generator=g) * 2 - 1).to(dev)
+    y = (torch.rand((2, 128, 3), generator=g) * 2 - 1).to(dev)
+    for part, gt, wt in zip(("grad x", "grad y"), weighted_grads(earth_mover_distance, x, y),
+                            weighted_grads(earth_mover_distance_dense, x, y)):
+        hold_emd(f"earth_mover_distance {part} (2,128)^2", gt, wt, EMD_GRAD_ATOL, 0.0)
+    x, y = gaussian(g, 2, NUM_POINTS, dev), gaussian(g, 2, NUM_POINTS, dev)
+    kernel = weighted_grads(earth_mover_distance, x, y)
+    plain = weighted_grads(earth_mover_distance_dense, x, y)
+    exact = weighted_grads(earth_mover_distance_dense, x.double(), y.double())
+    for i, part in enumerate(("grad x", "grad y")):
+        rel = lambda a: float((a.double() - exact[i]).norm() / exact[i].norm())  # noqa: E731
+        worst = lambda a: float((a.double() - exact[i]).abs().max())  # noqa: E731
+        print(f"earth_mover_distance {part} (2,2048)^2 against float64: relative L2 error "
+              f"{rel(kernel[i]):.3e} (held at {EMD_GRAD_REL_L2}; the float32 plain version's "
+              f"{rel(plain[i]):.3e}), max abs err {worst(kernel[i]):.3e} (plain "
+              f"{worst(plain[i]):.3e})")
+        if rel(kernel[i]) > EMD_GRAD_REL_L2:
+            raise AssertionError(f"earth_mover_distance {part} at (2,2048)^2: relative L2 "
+                                 f"error {rel(kernel[i])} against float64")
+
+    b, n = REC_BATCH, NUM_POINTS
+    x, y = gaussian(g, b, n, dev), gaussian(g, b, n, dev)
+    ms = cuda_ms(lambda: emd_cuda.emd_pair(x, y), iters=3)
+    few = 4
+    plain_pair_ms = cuda_ms(lambda: emd_cuda.emd_pair_reference(x[:few], y[:few]),
+                            iters=2) / few
+    out_floats = b * (1 + 4 * n + 4 * n)  # cost, R, C, V, U
+    bound_ms, bound_by = emd_bound(b, n, n, 4 * (x.numel() + y.numel() + out_floats),
+                                   with_u=True)
+    print(f"emd_pair ({b},{n})^2: kernel {ms:.3f} ms, plain {plain_pair_ms:.3f} ms a pair, "
+          f"bound {bound_ms:.3f} ms ({bound_by})")
+    return {"name": "emd_pair", "route": "cuda", "source": "dusty_gan_torch/csrc/emd.cu",
+            "replaces": "dusty_gan_tpu/metrics/emd_pallas.py:346",
+            "launches": None, "max_abs_err": max_abs, "ms": ms,
+            "plain_ms": plain_pair_ms * b, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "shape": f"({b},{n})^2 launch",
+            "plain_ms_per_pair": plain_pair_ms,
+            "note": f"plain_ms is plain_ms_per_pair, measured on {few} pairs, times the "
+                    f"launch's {b} pairs; no ported CLI path runs emd_pair (its callers are "
+                    "the public earth_mover_distance / compute_emd), launches are those of "
+                    "the EMD path, 0"}
+
+
 def prepare(work: str, num_test: int) -> dict:
     """Synthetic KITTI tree, the full-width DUSty-II config and a
     reference-format .pth of seeded random weights."""
@@ -333,17 +531,42 @@ def prepare(work: str, num_test: int) -> dict:
     return {"G": G, "cfg": cfg, "pth": pth, "cfg_path": cfg_path}
 
 
-def synthesis_path(work: str, run: dict, num_test: int) -> int:
-    """evaluate_synthesis (generated and --compute-gt); returns the
-    cd_block launches of the two runs."""
-    args = ["--model-path", run["pth"], "--config-path", run["cfg_path"],
+WRAPPERS = (chamfer_cuda.cd_block, chamfer_cuda.nn_dist, chamfer_cuda.nn_argmin,
+            emd_cuda.emd_block, emd_cuda.emd_pair)
+
+
+def reset_launches() -> None:
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in WRAPPERS}
+
+
+def synthesis_args(work: str, run: dict, num_test: int) -> list:
+    return ["--model-path", run["pth"], "--config-path", run["cfg_path"],
             "--save-dir-path", os.path.join(work, "out"),
             "--num-test", str(num_test), "--num-points", str(NUM_POINTS),
             "--cd-batch", str(CD_BATCH), "--device", "cuda"]
+
+
+def check_scores(name: str, s: dict, keys: set) -> None:
+    if set(s) != keys:
+        raise AssertionError(f"{name} score keys {sorted(s)}, expected {sorted(keys)}")
+    bad = {k: v for k, v in s.items() if not math.isfinite(v)}
+    if bad:
+        raise AssertionError(f"{name} scores not finite: {bad}")
+
+
+def synthesis_path(work: str, run: dict, num_test: int) -> int:
+    """evaluate_synthesis (generated and --compute-gt); returns the
+    cd_block launches of the two runs."""
+    args = synthesis_args(work, run, num_test)
     cwd = os.getcwd()
     os.chdir(work)  # --compute-gt writes outputs/ under the working directory
     try:
-        chamfer_cuda.cd_block.launches = 0
+        reset_launches()
         t_fake, t_gt = {}, {}
         t0 = time.perf_counter()
         fake = es.main(args, timings=t_fake)
@@ -354,11 +577,7 @@ def synthesis_path(work: str, run: dict, num_test: int) -> int:
     finally:
         os.chdir(cwd)
     for name, s in (("fake", fake), ("gt", gt)):
-        if set(s) != EXPECTED_KEYS:
-            raise AssertionError(f"{name} score keys {sorted(s)}")
-        bad = {k: v for k, v in s.items() if not math.isfinite(v)}
-        if bad:
-            raise AssertionError(f"{name} scores not finite: {bad}")
+        check_scores(name, s, EXPECTED_KEYS)
     if launches <= 0:
         raise AssertionError("the synthesis path launched cd_block no time")
     print("scores (generated vs test):", json.dumps(fake, sort_keys=True))
@@ -366,6 +585,73 @@ def synthesis_path(work: str, run: dict, num_test: int) -> int:
     print("stages:", json.dumps({"generated_run_s": t1 - t0, "gt_run_s": t2 - t1,
                                  "generated": t_fake, "gt": t_gt}))
     return launches
+
+
+def emd_path(work: str, run: dict, num_test: int, block_ms: float) -> dict:
+    """evaluate_synthesis --metrics cd,emd on ``num_test`` generated scans
+    against the test split (the protocol's 5000 cut in depth); checks every
+    key and that emd_block ran; returns the run's launch counts."""
+    t = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    s = es.main(synthesis_args(work, run, num_test) + ["--metrics", "cd,emd"], timings=t)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    check_scores("emd run", s, EXPECTED_KEYS | EMD_KEYS)
+    if launches["emd_block"] <= 0 or launches["cd_block"] <= 0:
+        raise AssertionError(f"the EMD path's launches: {launches}")
+    R, C = min(ROW_BLOCK, num_test), min(CD_BATCH, num_test)
+    pairs = sum(R * C for _ in block_schedule(num_test, num_test, R, C, True)) * 2 + \
+        sum(R * C for _ in block_schedule(num_test, num_test, R, C, False))
+    protocol = protocol_launches()
+    print("scores (generated vs test, cd,emd):", json.dumps(s, sort_keys=True))
+    print("stages:", json.dumps({"emd_run_s": wall, "num_test": num_test, "emd_pairs": pairs,
+                                 "emd_block_launches": launches["emd_block"],
+                                 "emd_us_per_pair": t["pairwise_emd"] / pairs * 1e6,
+                                 "generated": t}))
+    print(f"emd_block launches in one 5000-scan run: {protocol} (16,512) blocks; "
+          f"projected pairwise EMD time {protocol * block_ms / 1e3:.0f} s at "
+          f"{block_ms:.1f} ms a block")
+    return launches
+
+
+def calibration_path(work: str, run: dict, num_test: int, dev) -> None:
+    """evaluate_synthesis --calibrate-drop-rate (CD only) on ``num_test``
+    generated scans: the calibrated drop rate is within CALIB_ATOL of the
+    target, or the threshold sits at an end of its interval (the target is
+    out of the generator's reach, as the real rate may be for random
+    weights).  Then the bisection on the card toward a target the generator
+    reaches: its own drop rate at threshold 0.3 on 64 calibration latents."""
+    t = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    s = es.main(synthesis_args(work, run, num_test) + ["--calibrate-drop-rate"], timings=t)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    check_scores("calibration run", s, EXPECTED_KEYS | CALIB_KEYS)
+    if launches["cd_block"] <= 0:
+        raise AssertionError(f"the calibration path's launches: {launches}")
+    gap = abs(s["drop_rate/calibrated"] - s["drop_rate/target"])
+    at_end = s["mask_threshold"] in (1e-3, 1.0 - 1e-3)
+    print("calibration:", json.dumps({
+        k: s[k] for k in sorted(CALIB_KEYS)} | {"gap": gap, "at_interval_end": at_end,
+                                               "calibration_run_s": wall, "stages": t}))
+    if not (at_end or gap <= CALIB_ATOL):
+        raise AssertionError(f"calibrated drop rate {s['drop_rate/calibrated']} is not the "
+                             f"target {s['drop_rate/target']}")
+
+    cfg = run["cfg"]
+    drop = float(cfg.model.gen.drop_const)
+    G = copy.deepcopy(run["G"]).to(dev).requires_grad_(False)
+    gen = make_eval_generator(G, make_fixed_noise(G, tuple(cfg.dataset.shape), device=dev))
+    z = es.latents(0, 64, int(cfg.model.gen.in_ch), es.CALIB_SEED).to(dev)
+    with torch.no_grad():
+        target = float(drop_rate_2d(gen(z, threshold=0.3)["depth"], drop))
+    thr, achieved = calibrate_mask_threshold(gen, z, target, drop, batch=32)
+    print(f"calibration toward the rate at threshold 0.3 ({target:.6f}): threshold "
+          f"{thr:.6f}, rate {achieved:.6f} (held at atol {CALIB_ATOL})")
+    if abs(achieved - target) > CALIB_ATOL:
+        raise AssertionError(f"calibration reached {achieved}, not {target}")
 
 
 def reconstruction_path(work: str, run: dict, num_step: int) -> dict:
@@ -377,7 +663,7 @@ def reconstruction_path(work: str, run: dict, num_step: int) -> dict:
             "--num-step", str(num_step), "--max-batches", "1", "--device", "cuda"]
     stats = {}
     torch.cuda.reset_peak_memory_stats()
-    chamfer_cuda.nn_dist.launches = chamfer_cuda.nn_argmin.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     er.main(args, stats=stats)
     wall = time.perf_counter() - t0
@@ -557,6 +843,9 @@ def main(argv=None) -> int:
                              "samples of the synthesis run")
     parser.add_argument("--num-step", type=int, default=NUM_STEP,
                         help="inversion steps of the reconstruction run")
+    parser.add_argument("--emd-num-test", type=int, default=EMD_NUM_TEST,
+                        help="scored samples of the --metrics cd,emd run and of the "
+                             "calibration run")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible (torch.cuda.is_available() is "
@@ -578,17 +867,22 @@ def main(argv=None) -> int:
 
     entries = [check_cd_block(dev)] + check_nn(dev)
     check_chamfer_grad(dev)
+    entries += [check_emd_block(dev), check_emd_pair(dev)]
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(REPO, "build"))
     try:
         run = prepare(work, args.num_test)
         cd_launches = synthesis_path(work, run, args.num_test)
+        emd_launches = emd_path(work, run, args.emd_num_test, entries[3]["ms"])
+        calibration_path(work, run, args.emd_num_test, dev)
         nn_launches = reconstruction_path(work, run, args.num_step)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     entries[0]["launches"] = cd_launches
     entries[1]["launches"] = nn_launches["nn_dist"]
     entries[2]["launches"] = nn_launches["nn_argmin"]
+    entries[3]["launches"] = emd_launches["emd_block"]
+    entries[4]["launches"] = emd_launches["emd_pair"]
     print(f"cd_block launches in one {args.num_test}-scan run: "
           f"{cd_launches // 2}; in one 5000-scan run: {protocol_launches()}")
     profile_inversion(dev, run)

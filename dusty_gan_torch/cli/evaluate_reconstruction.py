@@ -51,19 +51,22 @@ from dusty_gan_torch.utils.setup import make_eval_generator, setup
 RESULT_KEYS = ("cd", "accuracy_1", "accuracy_2", "accuracy_3", "rmse",
                "rmse_log", "abs_rel", "sq_rel", "tol", "drop_gen",
                "drop_ref", "index")
-Z0_SEED, NOISE_SEED = 1, 2
+# batch bi seeds its z0 generator Z0_SEED + bi and its noise generator
+# NOISE_SEED + bi; a CPU generator keeps only the low 32 bits of a seed, so
+# the two ranges differ there
+Z0_SEED, NOISE_SEED = 1 << 20, 2 << 20
 
 
 def initial_latent(bi: int, b: int, in_ch: int, device) -> torch.Tensor:
     """(b, in_ch) standard normal z0 of test batch ``bi``."""
-    g = torch.Generator(device=device).manual_seed((Z0_SEED << 32) + bi)
+    g = torch.Generator(device=device).manual_seed(Z0_SEED + bi)
     return torch.randn((b, in_ch), generator=g, device=device)
 
 
 def step_noise(bi: int, device) -> NoiseFn:
     """The per-step latent noise of test batch ``bi``: standard normal
     draws taken one after another from a generator seeded by ``bi``."""
-    g = torch.Generator(device=device).manual_seed((NOISE_SEED << 32) + bi)
+    g = torch.Generator(device=device).manual_seed(NOISE_SEED + bi)
     return lambda step, shape: torch.randn(shape, generator=g, device=device)
 
 

@@ -3,15 +3,28 @@
     python -m dusty_gan_torch.cli.evaluate_synthesis \\
         --model-path <checkpoint.pth> --config-path <run>/.hydra/config.yaml \\
         [--num-test 5000] [--num-points 2048] [--tol 0] [--compute-gt] \\
-        [--device cuda]
+        [--metrics cd[,emd]] [--calibrate-drop-rate] [--device cuda]
 
 EMA generator with frozen Gumbel noise; real train/test tensors cached under
 the dataset root with a content signature; uniform-stride subsample to
 ``--num-test``; SWD on the 2D inverse depth, JSD on points / 2 and
 COV/MMD/1-NNA over pairwise Chamfer matrices (the CUDA ``cd_block``
-kernel); the scores are printed and dumped as JSON.  ``--compute-gt``
-scores the real train set against the test set instead.  One latent is
-drawn per global sample index, so scores do not depend on the batch size.
+kernel) and, with ``--metrics cd,emd``, EMD matrices (the CUDA
+``emd_block`` kernel); the scores are printed and dumped as JSON.
+``--compute-gt`` scores the real train set against the test set instead.
+One latent is drawn per global sample index, so scores do not depend on the
+batch size.
+
+``--calibrate-drop-rate`` first bisects the Gumbel keep threshold so that
+the generated drop rate matches the real train set's
+(``utils/calibration.py``).  Its latents are drawn like the evaluation
+latents, one per index i, from generators seeded ``CALIB_SEED + i`` with
+``CALIB_SEED = 0xCA1 << 20``.  A CPU generator keeps the low 32 bits of
+its seed and evaluation sample i takes seed i, so the calibration seeds sit
+above every evaluation seed of a run with fewer than 3.39e9 samples (0xCA1
+itself is evaluation sample 3233's).  They are not the JAX CLI's
+``PRNGKey(0xCA1)`` draws, so the calibrated threshold differs from the JAX
+CLI's by the sampling noise of ``--calib-samples`` latents.
 """
 
 from __future__ import annotations
@@ -24,7 +37,7 @@ import os
 import os.path as osp
 import pprint
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,14 +46,17 @@ from dusty_gan_torch import resolve_device, synchronize
 from dusty_gan_torch.data.datasets import define_dataset
 from dusty_gan_torch.data.loader import Loader
 from dusty_gan_torch.geometry.lidar import sigmoid_to_tanh, tanh_to_sigmoid
-from dusty_gan_torch.metrics.cov_mmd_1nna import compute_cov_mmd_1nna
+from dusty_gan_torch.metrics.cov_mmd_1nna import check_metrics, compute_cov_mmd_1nna
 from dusty_gan_torch.metrics.fps import downsample_point_clouds
 from dusty_gan_torch.metrics.jsd import compute_jsd
 from dusty_gan_torch.metrics.swd import compute_swd
+from dusty_gan_torch.utils.calibration import (calibrate_mask_threshold, drop_rate_2d,
+                                               real_drop_rate)
 from dusty_gan_torch.utils.setup import make_eval_generator, setup
 
 REAL_TOL = 1e-8
-LATENT_SEED = 0
+LATENT_SEED = 0  # sample i's latent is drawn from seed LATENT_SEED + i
+CALIB_SEED = 0xCA1 << 20  # calibration latent i: seed CALIB_SEED + i
 FPS_BATCH = 256  # clouds per furthest-point-sampling call
 
 
@@ -57,13 +73,13 @@ def real_cache_path(ds, name: str, subset: str, num_points: int, tol: float) -> 
                     f"torch_eval_{name}_{subset}_{num_points}_{h}.npz")
 
 
-def latents(start: int, stop: int, in_ch: int) -> torch.Tensor:
+def latents(start: int, stop: int, in_ch: int, seed: int = LATENT_SEED) -> torch.Tensor:
     """(stop - start, in_ch) standard normal latents, row i drawn from a CPU
-    generator seeded by its global sample index i."""
+    generator seeded ``seed + i`` by its global sample index i."""
     g = torch.Generator()
     rows = []
     for i in range(start, stop):
-        g.manual_seed((LATENT_SEED << 32) + i)
+        g.manual_seed(seed + i)
         rows.append(torch.randn(in_ch, generator=g))
     return torch.stack(rows)
 
@@ -79,9 +95,11 @@ def to_points(lidar, inv: torch.Tensor, tol: float, num_points: int) -> torch.Te
 
 
 def score(gen_2d, gen_3d, ref_2d, ref_3d, cd_batch: int, draws=None,
-          timings: Optional[Dict[str, float]] = None) -> Dict[str, float]:
-    """SWD, JSD and COV/MMD/1-NNA (CD) of generated against reference
-    images (B, H, W, 1) and clouds (B, N, 3)."""
+          timings: Optional[Dict[str, float]] = None,
+          metrics: Tuple[str, ...] = ("cd",)) -> Dict[str, float]:
+    """SWD, JSD and COV/MMD/1-NNA (over each of ``metrics``: "cd", "emd")
+    of generated against reference images (B, H, W, 1) and clouds
+    (B, N, 3)."""
     timings = {} if timings is None else timings
     device = gen_2d.device
     scores: Dict[str, float] = {}
@@ -92,10 +110,8 @@ def score(gen_2d, gen_3d, ref_2d, ref_3d, cd_batch: int, draws=None,
     t = time.perf_counter()
     scores["jsd"] = compute_jsd(gen_3d / 2.0, ref_3d / 2.0)
     timings["jsd"] = time.perf_counter() - t
-    t = time.perf_counter()
-    scores.update(compute_cov_mmd_1nna(gen_3d, ref_3d, cd_batch, ("cd",), verbose=True))
-    synchronize(device)
-    timings["pairwise_cd"] = time.perf_counter() - t
+    scores.update(compute_cov_mmd_1nna(gen_3d, ref_3d, cd_batch, metrics, verbose=True,
+                                       timings=timings))
     return scores
 
 
@@ -116,7 +132,8 @@ def _not_ported(flag: str):
 
 def main(argv=None, timings: Optional[Dict[str, float]] = None):
     """Returns the score dict.  ``timings``, when given, receives the wall
-    seconds of each stage (reals, generation, fps, swd, jsd, pairwise_cd)."""
+    seconds of each stage (reals, calibration, generation, fps, swd, jsd,
+    pairwise_cd, pairwise_emd)."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--model-path", type=str, required=True)
     parser.add_argument("--config-path", type=str, required=True)
@@ -127,14 +144,17 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None):
     parser.add_argument("--compute-gt", action="store_true")
     parser.add_argument("--cd-batch", type=int, default=512)
     parser.add_argument("--metrics", type=str, default="cd",
-                        help="comma list; only cd is ported")
+                        help="comma list: cd[,emd] (reference protocol: cd)")
     parser.add_argument("--mask-threshold", type=float, default=0.5,
                         help="Gumbel keep threshold for the DUSty pixel mask "
                              "(reference: 0.5)")
     parser.add_argument("--calibrate-drop-rate", action="store_true",
-                        help="not yet ported")
+                        help="bisect --mask-threshold so the generated drop "
+                             "rate matches the real train set (post hoc; see "
+                             "utils/calibration.py)")
     parser.add_argument("--calib-samples", type=int, default=512,
-                        help="with --calibrate-drop-rate; not yet ported")
+                        help="latents used to measure the generated drop rate "
+                             "during calibration")
     parser.add_argument("--multihost", action="store_true",
                         help="not yet ported")
     parser.add_argument("--prepare-only", action="store_true",
@@ -145,10 +165,7 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None):
     args = parser.parse_args(argv)
 
     metrics = tuple(m.strip() for m in args.metrics.split(",") if m.strip())
-    if metrics != ("cd",):
-        _not_ported(f"--metrics {args.metrics}")
-    if args.calibrate_drop_rate:
-        _not_ported("--calibrate-drop-rate")
+    check_metrics(metrics)
     if args.multihost:
         _not_ported("--multihost")
     device = resolve_device(args.device)
@@ -201,7 +218,7 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None):
     if args.compute_gt:
         scores = score(reals["train"]["2d"], reals["train"]["3d"],
                        reals["test"]["2d"], reals["test"]["3d"], args.cd_batch,
-                       timings=timings)
+                       timings=timings, metrics=metrics)
         scores["#test"] = args.num_test
         scores["#points"] = args.num_points
         pprint.pprint(scores)
@@ -215,6 +232,19 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None):
     n_test = len(reals["test"]["2d"])
     in_ch = int(cfg.model.gen.in_ch)
     mask_threshold = float(args.mask_threshold)
+    calib_info = {}
+    if args.calibrate_drop_rate:
+        # target: the real train set's drop rate
+        t = time.perf_counter()
+        target = real_drop_rate(reals["train"]["2d"], drop_const)
+        z_cal = latents(0, int(args.calib_samples), in_ch, CALIB_SEED).to(device)
+        mask_threshold, achieved = calibrate_mask_threshold(
+            gen, z_cal, target, drop_const, batch=batch_size)
+        calib_info = {"mask_threshold": mask_threshold, "drop_rate/target": target,
+                      "drop_rate/calibrated": achieved}
+        timings["calibration"] = time.perf_counter() - t
+        print(f"calibrated mask threshold: {mask_threshold:.6f} "
+              f"(drop rate {achieved:.4f} vs real {target:.4f})")
     t = time.perf_counter()
     fake_2d = []
     for i in range(0, n_test, batch_size):
@@ -229,14 +259,13 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None):
     timings["fps"] = time.perf_counter() - t
 
     scores = score(fake_2d, fake_3d, reals["test"]["2d"], reals["test"]["3d"],
-                   args.cd_batch, timings=timings)
+                   args.cd_batch, timings=timings, metrics=metrics)
     scores["#test"] = args.num_test
     scores["#points"] = args.num_points
-    if mask_threshold != 0.5:
-        # dropped pixels sit exactly at drop_const
-        scores["drop_rate/fake"] = float(
-            torch.mean((fake_2d < drop_const + 1e-3).float()))
+    if mask_threshold != 0.5 or calib_info:
+        scores["drop_rate/fake"] = float(drop_rate_2d(fake_2d, drop_const))
         scores["mask_threshold"] = mask_threshold
+        scores.update(calib_info)
     pprint.pprint(scores)
     os.makedirs(args.save_dir_path, exist_ok=True)
     save_path = osp.join(args.save_dir_path, f"{timestamp}.json")

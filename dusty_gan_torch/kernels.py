@@ -38,6 +38,12 @@ SIGNATURES = {
         "nn_points_per_thread": (_I, [_I, _I]),
         "nn_error_string": (ctypes.c_char_p, [_I]),
     },
+    "emd": {
+        "emd_block_launch": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
+        "emd_pair_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+        "emd_max_points": (_I, []),
+        "emd_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -1,8 +1,9 @@
-"""COV / MMD / 1-NNA over pairwise Chamfer matrices
-(``dusty_gan_tpu/metrics/cov_mmd_1nna.py``), CD only.
+"""COV / MMD / 1-NNA over pairwise Chamfer and EMD matrices
+(``dusty_gan_tpu/metrics/cov_mmd_1nna.py``).
 
-The (B1, B2) matrix is filled in (R, C) blocks, one ``cd_block`` launch per
-block, on the clouds' device.  A symmetric matrix (the same tensor on both
+The (B1, B2) matrix is filled in (R, C) blocks, one kernel launch per block
+(``cd_block`` for CD, ``emd_block`` divided by the point count for EMD), on
+the clouds' device.  A symmetric matrix (the same tensor on both
 sides) computes only the blocks that touch the upper triangle and mirrors
 the strict upper triangle onto the lower one, so the lower entries of a
 diagonal block are overwritten exactly as in the JAX package.  COV, MMD and
@@ -11,12 +12,16 @@ diagonal block are overwritten exactly as in the JAX package.  COV, MMD and
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+import time
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from dusty_gan_torch.metrics.chamfer_cuda import cd_block
+from dusty_gan_torch.metrics.emd_cuda import emd_block
+
+METRICS = ("cd", "emd")
 
 # row clouds per launch; a (16, 512) block is 8192 thread blocks on the card
 ROW_BLOCK = 16
@@ -50,8 +55,10 @@ def _pad_rows(p: torch.Tensor, target: int) -> torch.Tensor:
 
 
 def blocked_matrix(pcs_1: torch.Tensor, pcs_2: torch.Tensor, R: int, C: int,
-                   symmetric: bool, verbose: bool = False) -> np.ndarray:
-    """Fill the (B1, B2) matrix block by block through ``cd_block``."""
+                   symmetric: bool, block: Callable, label: str,
+                   verbose: bool = False) -> np.ndarray:
+    """Fill the (B1, B2) matrix block by block through ``block(rows, cols)
+    -> (R, C)``."""
     b1, b2 = pcs_1.shape[0], pcs_2.shape[0]
     b1p, b2p = -(-b1 // R) * R, -(-b2 // C) * C
     rows_all = _pad_rows(pcs_1, b1p)
@@ -59,9 +66,9 @@ def blocked_matrix(pcs_1: torch.Tensor, pcs_2: torch.Tensor, R: int, C: int,
     out = torch.zeros((b1p, b2p), dtype=torch.float32, device=pcs_1.device)
     last_i = -1
     for i, j in block_schedule(b1, b2, R, C, symmetric):
-        out[i:i + R, j:j + C] = cd_block(rows_all[i:i + R], cols_all[j:j + C])
+        out[i:i + R, j:j + C] = block(rows_all[i:i + R], cols_all[j:j + C])
         if verbose and i != last_i:
-            print(f"pairwise cd: dispatched {min(i + R, b1)}/{b1}")
+            print(f"pairwise {label}: dispatched {min(i + R, b1)}/{b1}")
             last_i = i
     out = out.cpu().numpy()[:b1, :b2]
     if symmetric:
@@ -75,7 +82,25 @@ def pairwise_cd(pcs_1: torch.Tensor, pcs_2: torch.Tensor, col_chunk: int,
     """(B1, N, 3), (B2, M, 3) -> (B1, B2) symmetric-CD matrix; symmetric
     when both arguments are the same tensor."""
     R, C = block_dims(pcs_1.shape[0], pcs_2.shape[0], col_chunk)
-    return blocked_matrix(pcs_1, pcs_2, R, C, pcs_1 is pcs_2, verbose)
+    return blocked_matrix(pcs_1, pcs_2, R, C, pcs_1 is pcs_2, cd_block, "cd", verbose)
+
+
+def pairwise_emd(pcs_1: torch.Tensor, pcs_2: torch.Tensor, col_chunk: int,
+                 verbose: bool = False) -> np.ndarray:
+    """(B1, N, 3), (B2, N, 3) -> (B1, B2) per-point EMD matrix
+    (``compute_emd``: the auction cost over N); symmetric when both
+    arguments are the same tensor.  EMD is not symmetric in its two clouds,
+    so a symmetric matrix keeps the upper triangle's emd(row, col)."""
+    n, m = pcs_1.shape[1], pcs_2.shape[1]
+    if n != m:
+        raise ValueError(f"pairwise EMD needs equal point counts, got {n} != {m}")
+    R, C = block_dims(pcs_1.shape[0], pcs_2.shape[0], col_chunk)
+    return blocked_matrix(pcs_1, pcs_2, R, C, pcs_1 is pcs_2,
+                          lambda rows, cols: emd_block(rows, cols) / float(n),
+                          "emd", verbose)
+
+
+PAIRWISE = {"cd": pairwise_cd, "emd": pairwise_emd}
 
 
 def _compute_cov_mmd(m_rg: np.ndarray) -> Dict[str, float]:
@@ -127,21 +152,33 @@ def _compute_nna(m_rr, m_rg, m_gg, k: int = 1,
     return s
 
 
+def check_metrics(metrics: Tuple[str, ...]) -> None:
+    unknown = [m for m in metrics if m not in METRICS]
+    if unknown or not metrics:
+        raise ValueError(f"metrics {tuple(metrics)}: each must be one of {METRICS}")
+
+
 def compute_cov_mmd_1nna(pcs_gen: torch.Tensor, pcs_ref: torch.Tensor,
                          batch_size: int, metrics: Tuple[str, ...] = ("cd",),
-                         verbose: bool = False) -> Dict[str, float]:
-    """{cov,mmd,mmd-sample}-cd and 1-nn-*-cd scores of generated clouds
-    against reference clouds, both (B, N, 3) on one device."""
-    if tuple(metrics) != ("cd",):
-        raise NotImplementedError(
-            f"metrics {metrics}: only 'cd' is ported to dusty_gan_torch; "
-            "EMD is not yet ported")
-    m_rr = pairwise_cd(pcs_ref, pcs_ref, batch_size, verbose)
-    m_rg = pairwise_cd(pcs_ref, pcs_gen, batch_size, verbose)
-    m_gg = pairwise_cd(pcs_gen, pcs_gen, batch_size, verbose)
+                         verbose: bool = False,
+                         timings: Optional[Dict[str, float]] = None) -> Dict[str, float]:
+    """{cov,mmd,mmd-sample}-<metric> and 1-nn-*-<metric> scores of generated
+    clouds against reference clouds, both (B, N, 3) on one device, for each
+    metric of ``metrics`` ("cd", "emd").  ``timings``, when given, receives
+    the wall seconds of each metric's three matrices as
+    ``pairwise_<metric>``."""
+    check_metrics(tuple(metrics))
     results: Dict[str, float] = {}
-    for k, v in _compute_cov_mmd(m_rg).items():
-        results[f"{k}-cd"] = v
-    for k, v in _compute_nna(m_rr, m_rg, m_gg).items():
-        results[f"1-nn-{k}-cd"] = v
+    for metric in metrics:
+        pairwise = PAIRWISE[metric]
+        t = time.perf_counter()
+        m_rr = pairwise(pcs_ref, pcs_ref, batch_size, verbose)
+        m_rg = pairwise(pcs_ref, pcs_gen, batch_size, verbose)
+        m_gg = pairwise(pcs_gen, pcs_gen, batch_size, verbose)
+        if timings is not None:  # each matrix ends in a copy to the host
+            timings[f"pairwise_{metric}"] = time.perf_counter() - t
+        for k, v in _compute_cov_mmd(m_rg).items():
+            results[f"{k}-{metric}"] = v
+        for k, v in _compute_nna(m_rr, m_rg, m_gg).items():
+            results[f"1-nn-{k}-{metric}"] = v
     return results

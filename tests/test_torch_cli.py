@@ -1,8 +1,10 @@
 """dusty_gan_torch.cli.evaluate_synthesis on the CPU on a tiny synthetic
 tree: the JSON key set equals the JAX CLI's on the same reference-format
-.pth, the scores do not depend on the batch size, the CLI refuses to run
-without a GPU unless --device cpu is given, unported flags raise, and no
-module of the port (nor chip_smoke.py) imports JAX or the JAX package."""
+.pth, with --metrics cd,emd and with --calibrate-drop-rate too, the scores
+do not depend on the batch size, the CLI refuses to run without a GPU
+unless --device cpu is given, --multihost (not yet ported) and unknown
+metrics raise, and no module of the port (nor chip_smoke.py) imports JAX
+or the JAX package."""
 
 import glob
 import json
@@ -109,11 +111,68 @@ def test_refuses_cpu_fallback_without_gpu(run):
         main(_args(run))
 
 
-@pytest.mark.parametrize("flag", [["--metrics", "cd,emd"], ["--calibrate-drop-rate"],
-                                  ["--multihost"]])
+@pytest.mark.parametrize("flag", [["--multihost"]])
 def test_unported_flags_raise(run, flag):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         main(_args(run, "--device", "cpu", *flag))
+
+
+def test_emd_key_set_equals_jax_cli(run, tmp_path, monkeypatch):
+    """--metrics cd,emd adds the twelve -emd keys; the real-vs-real EMD floor
+    is computed from the same real tensors as the JAX CLI's."""
+    monkeypatch.chdir(tmp_path)
+    want = jax_main(_args(run, "--compute-gt", "--metrics", "cd,emd"))
+    timings = {}
+    gt = main(_args(run, "--compute-gt", "--metrics", "cd,emd", "--device", "cpu"),
+              timings=timings)
+    assert set(gt) == set(want) and len([k for k in gt if k.endswith("-emd")]) == 12
+    assert {"pairwise_cd", "pairwise_emd"} <= set(timings)
+    for k in ("mmd-emd", "mmd-sample-emd", "mmd-cd"):
+        np.testing.assert_allclose(gt[k], want[k], rtol=1e-3, err_msg=k)
+
+
+def test_generated_scores_with_emd(run):
+    """The generated run scores each metric asked for; neither metric's
+    scores change when the other is added."""
+    cd = main(_args(run, "--device", "cpu"))
+    both = main(_args(run, "--device", "cpu", "--metrics", "cd,emd"))
+    emd = main(_args(run, "--device", "cpu", "--metrics", "emd"))
+    assert all(np.isfinite(v) for v in both.values())
+    assert len([k for k in both if k.endswith("-emd")]) == 12
+    assert not any(k.endswith("-cd") for k in emd)
+    assert cd == {k: v for k, v in both.items() if not k.endswith("-emd")}
+    assert emd == {k: v for k, v in both.items() if not k.endswith("-cd")}
+
+
+def test_calibrate_drop_rate_matches_jax_cli(run):
+    """The same keys as the JAX CLI; the target is the real train set's
+    drop rate, equal on both sides; the calibrated rate is the target's up
+    to one pixel step of the calibration images, or sits at an end of the
+    threshold interval.  The calibration latents differ (torch generators
+    against JAX keys), so the thresholds are not compared."""
+    args = ["--calibrate-drop-rate", "--calib-samples", "6"]
+    want = jax_main(_args(run, *args))
+    got = main(_args(run, "--device", "cpu", *args))
+    assert set(got) == set(want)
+    assert got["drop_rate/target"] == want["drop_rate/target"]
+    step = 1.0 / (6 * 64 * 256)
+    at_end = got["mask_threshold"] in (1e-3, 1.0 - 1e-3)
+    assert at_end or abs(got["drop_rate/calibrated"] - got["drop_rate/target"]) <= 2 * step
+    assert 0.0 <= got["drop_rate/fake"] <= 1.0
+
+
+def test_calibration_latents_are_apart_from_eval_latents():
+    from dusty_gan_torch.cli.evaluate_synthesis import CALIB_SEED
+
+    cal, ev = latents(0, 4, 8, CALIB_SEED), latents(0, 4, 8)
+    assert not any(torch.equal(c, e) for c in cal for e in ev)
+    np.testing.assert_array_equal(latents(2, 4, 8, CALIB_SEED).numpy(), cal[2:].numpy())
+
+
+@pytest.mark.parametrize("metrics", ["cd,xyz", "emd2", ","])
+def test_unknown_metric_raises(run, metrics):
+    with pytest.raises(ValueError, match="metrics"):
+        main(_args(run, "--device", "cpu", "--metrics", metrics))
 
 
 def test_port_never_imports_jax():

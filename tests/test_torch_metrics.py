@@ -193,9 +193,3 @@ def test_block_schedule_skips_lower_blocks():
     # the 5000-scan protocol at (16, 512): 313 x 10 blocks, 3130 when not
     # symmetric
     assert len(list(block_schedule(5000, 5000, 16, 512, False))) == 3130
-
-
-def test_only_cd_is_ported():
-    t = torch.zeros(2, 4, 3)
-    with pytest.raises(NotImplementedError, match="EMD"):
-        compute_cov_mmd_1nna(t, t, 2, ("cd", "emd"))

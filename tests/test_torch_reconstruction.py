@@ -350,6 +350,8 @@ def test_seeded_draws_depend_on_batch_index_only():
     first = n1(0, (2, 8))
     np.testing.assert_array_equal(first.numpy(), n2(0, (2, 8)).numpy())
     assert not torch.equal(first, n1(1, (2, 8)))
+    # z0 and the step noise of one batch are different draws
+    assert not torch.equal(er.initial_latent(3, 2, 8, "cpu"), er.step_noise(3, "cpu")(0, (2, 8)))
 
 
 # -------------------------------------------------------------- CLI surface

@@ -2,8 +2,9 @@
 fixed Gumbel noise, real scans and SWD draws through the JAX pipeline
 (make_eval_generator -> to_pts -> score, as dusty_gan_tpu/cli/
 evaluate_synthesis.py runs them) and through dusty_gan_torch's, compared
-score by score.  Float32 generators on both sides.  SWD, JSD, MMD and the
-CD-based rates within rtol 1e-4; COV and 1-NNA counts equal."""
+score by score, with COV/MMD/1-NNA over CD and EMD (``--metrics cd,emd``).
+Float32 generators on both sides.  SWD, JSD, MMD and the CD- and EMD-based
+rates within rtol 1e-4; COV and 1-NNA counts equal."""
 
 import os.path as osp
 
@@ -33,9 +34,10 @@ from tests.torch_parity import (IN_CH, JaxDraws, jax_generator, logistic, nchw,
 ARCH = "dusty2/dcgan_eqlr"
 SHAPE = (64, 256)
 B, NUM_POINTS, CD_BATCH, DROP = 4, 128, 3, -1.0
-COUNT_KEYS = ("cov-cd", "1-nn-tp-cd", "1-nn-fp-cd", "1-nn-fn-cd", "1-nn-tn-cd",
-              "1-nn-accuracy-cd", "1-nn-accuracy_t-cd", "1-nn-accuracy_f-cd",
-              "1-nn-precision-cd", "1-nn-recall-cd")
+METRICS = ("cd", "emd")
+COUNT_KEYS = tuple(f"{k}-{m}" for m in METRICS for k in (
+    "cov", "1-nn-tp", "1-nn-fp", "1-nn-fn", "1-nn-tn", "1-nn-accuracy",
+    "1-nn-accuracy_t", "1-nn-accuracy_f", "1-nn-precision", "1-nn-recall"))
 
 
 @pytest.fixture(scope="module")
@@ -69,7 +71,7 @@ def pipelines(tmp_path_factory):
     ref_3d_j, fake_3d_j = to_pts(ref_2d_j, es.REAL_TOL), to_pts(fake_2d_j, 0.0)
     scores_j = dict(jax_swd(fake_2d_j, ref_2d_j, key=key))
     scores_j["jsd"] = jax_jsd(fake_3d_j / 2.0, ref_3d_j / 2.0)
-    scores_j.update(jax_cov(fake_3d_j, ref_3d_j, CD_BATCH, ("cd",)))
+    scores_j.update(jax_cov(fake_3d_j, ref_3d_j, CD_BATCH, METRICS))
 
     # ---- port
     tlid = tl.Lidar.from_angle_array(angles, SHAPE, 0.9, 120.0)
@@ -84,7 +86,7 @@ def pipelines(tmp_path_factory):
     ref_3d_t = es.to_points(tlid, ref_2d_t, es.REAL_TOL, NUM_POINTS)
     fake_3d_t = es.to_points(tlid, fake_2d_t, 0.0, NUM_POINTS)
     scores_t = es.score(fake_2d_t, fake_3d_t, ref_2d_t, ref_3d_t, CD_BATCH,
-                        draws=JaxDraws(key))
+                        draws=JaxDraws(key), metrics=METRICS)
     return {
         "jax": dict(ref_2d=ref_2d_j, fake_2d=fake_2d_j, ref_3d=ref_3d_j,
                     fake_3d=fake_3d_j, scores=scores_j),
