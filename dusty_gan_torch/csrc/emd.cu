@@ -57,7 +57,8 @@
 //
 // Limits: N and M at most kMaxPoints (3072), so that K5's state fits the
 // 227 KB of shared memory a block may use; any N and M up to it, not only
-// multiples of anything.
+// multiples of anything.  metrics/emd_cuda.py's MAX_POINTS states the same
+// limit to callers; a launch beyond it returns cudaErrorInvalidValue.
 
 #include <cuda_runtime.h>
 
@@ -418,9 +419,6 @@ int emd_pair_launch(const float* x, const float* y, float* cost, float* R,
       x, y, cost, R, C, V, U, N, M);
   return (int)cudaGetLastError();
 }
-
-// The largest N and M the kernels take.
-int emd_max_points() { return kMaxPoints; }
 
 const char* emd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -41,7 +41,6 @@ SIGNATURES = {
     "emd": {
         "emd_block_launch": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
         "emd_pair_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
-        "emd_max_points": (_I, []),
         "emd_error_string": (ctypes.c_char_p, [_I]),
     },
 }

@@ -26,7 +26,7 @@ from dusty_gan_torch import kernels
 from dusty_gan_torch.metrics.chamfer_cuda import _sq_dist
 
 # the largest N and M the kernels take (csrc/emd.cu kMaxPoints: K5's state
-# in shared memory)
+# in shared memory; the launch functions refuse larger shapes as well)
 MAX_POINTS = 3072
 # CUDA's limit on a one-dimensional grid: one block per pair
 MAX_PAIRS = 2 ** 31 - 1
