@@ -4,7 +4,8 @@
 
 1. Prints the card's name and power limit and the torch version, and
    builds every CUDA kernel of the port from ``dusty_gan_torch/csrc``
-   (one nvcc per source, all started together).
+   (one nvcc per source, all started together); prints ptxas's registers
+   and spills for ``emd.cu`` and fails if its kernels spill.
 2. Holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes and at ragged ones, and times both: ``cd_block``
    (K1), ``nn_dist`` (K2) and ``nn_argmin`` (K3), the latter two in every
@@ -17,8 +18,11 @@
    64x256 KITTI) with seeded random weights on a synthetic KITTI tree:
    512 test scans (``--num-test``; 5000 is the paper's protocol),
    2048-point clouds, and again with --compute-gt; then the EMD path,
-   ``--metrics cd,emd`` on 256 generated scans (``--emd-num-test``), and
-   one ``--calibrate-drop-rate`` run (CD only) on 256.
+   ``--metrics cd,emd`` on 256 generated scans (``--emd-num-test``), from
+   whose us a pair it projects the 5000-scan protocol's EMD time, and
+   one ``--calibrate-drop-rate`` run (CD only) on 256.  For the timed K4
+   block and the EMD run's first block it prints the share of weight
+   evaluations that the unshipped ``EMD_SKIP`` build would leave out.
 4. Drives the reconstruction path,
    ``dusty_gan_torch.cli.evaluate_reconstruction``, on the same generator
    and tree: one batch of 512 test scans, ``--num-step`` inversion steps,
@@ -57,7 +61,7 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
-from dusty_gan_torch import kernels  # noqa: E402
+from dusty_gan_torch import emd_variants, kernels  # noqa: E402
 from dusty_gan_torch.cli import evaluate_reconstruction as er  # noqa: E402
 from dusty_gan_torch.cli import evaluate_synthesis as es  # noqa: E402
 from dusty_gan_torch.config import compose, save_config  # noqa: E402
@@ -66,6 +70,7 @@ from dusty_gan_torch.metrics import chamfer_cuda, emd_cuda  # noqa: E402
 from dusty_gan_torch.metrics.chamfer import chamfer_distance  # noqa: E402
 from dusty_gan_torch.metrics.emd import (  # noqa: E402
     earth_mover_distance, earth_mover_distance_dense)
+from dusty_gan_torch.metrics import cov_mmd_1nna  # noqa: E402
 from dusty_gan_torch.metrics.cov_mmd_1nna import (  # noqa: E402
     ROW_BLOCK, block_schedule, compute_cov_mmd_1nna, pairwise_emd)
 from dusty_gan_torch.models.factory import define_G  # noqa: E402
@@ -375,6 +380,27 @@ def emd_bound(pairs: int, n: int, m: int, nbytes: int, with_u: bool):
     return max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def skip_share(rows, cols) -> float:
+    """Share of the weight evaluations that the EMD_SKIP build of K4 (not
+    shipped) would leave out on these clouds in Morton order
+    (``emd_variants.skipped_evaluations``); no kernel runs."""
+    skipped, total = emd_variants.skipped_evaluations(emd_variants.morton_sorted(rows),
+                                                      emd_variants.morton_sorted(cols))
+    return skipped / total
+
+
+def check_emd_ptxas() -> None:
+    """Print ptxas's registers and spills for csrc/emd.cu's two kernels and
+    fail if either spills."""
+    info = kernels.ptxas_info("emd")
+    print("ptxas, emd.cu:\n" + info)
+    spills = [line for line in info.splitlines() if "spill" in line]
+    if len(spills) != 2 or any(not line.strip().startswith("0 bytes stack frame, 0 bytes "
+                                                           "spill stores, 0 bytes spill loads")
+                               for line in spills):
+        raise AssertionError(f"emd.cu's kernels spill or ptxas said otherwise: {spills}")
+
+
 def hold_emd(name: str, got, want, atol: float, rtol: float, diag=None) -> float:
     """|got - want| <= atol + rtol |want| (``diag``: a mask of entries held at
     EMD_DIAG_ATOL instead); returns the largest absolute error."""
@@ -465,7 +491,9 @@ def check_emd_block(dev) -> dict:
                                    with_u=False)
     print(f"emd_block ({r},{n})x({c},{n}): kernel {ms:.3f} ms ({ms / (r * c) * 1e3:.3f} us "
           f"a pair), plain {plain_ms:.3f} ms ({plain_ms / (r * c):.3f} ms a pair), bound "
-          f"{bound_ms:.3f} ms ({bound_by}); {r * c / ms * 1e3:.0f} pairs/s")
+          f"{bound_ms:.3f} ms ({bound_by}); {r * c / ms * 1e3:.0f} pairs/s; the kernel "
+          f"evaluates every weight, an EMD_SKIP build would leave out "
+          f"{skip_share(rows, cols):.4f} of them")
     return {"name": "emd_block", "route": "cuda", "source": "dusty_gan_torch/csrc/emd.cu",
             "replaces": "dusty_gan_tpu/metrics/emd_pallas.py:307",
             "launches": None, "max_abs_err": max_abs, "ms": ms,
@@ -623,31 +651,46 @@ def synthesis_path(work: str, run: dict, num_test: int) -> int:
     return launches
 
 
-def emd_path(work: str, run: dict, num_test: int, block_ms: float) -> dict:
+def emd_path(work: str, run: dict, num_test: int) -> dict:
     """evaluate_synthesis --metrics cd,emd on ``num_test`` generated scans
     against the test split (the protocol's 5000 cut in depth); checks every
-    key and that emd_block ran; returns the run's launch counts."""
+    key and that emd_block ran; projects the 5000-scan protocol's pairwise
+    EMD time from the run's us a pair; returns the run's launch counts."""
     t = {}
+    first = []
+
+    def recording(rows, cols):  # keeps the first block's clouds
+        if not first:
+            first.append((rows, cols))
+        return emd_cuda.emd_block(rows, cols)
+
+    cov_mmd_1nna.emd_block = recording
     reset_launches()
-    t0 = time.perf_counter()
-    s = es.main(synthesis_args(work, run, num_test) + ["--metrics", "cd,emd"], timings=t)
-    wall = time.perf_counter() - t0
-    launches = launch_counts()
+    try:
+        t0 = time.perf_counter()
+        s = es.main(synthesis_args(work, run, num_test) + ["--metrics", "cd,emd"], timings=t)
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+    finally:
+        cov_mmd_1nna.emd_block = emd_cuda.emd_block
     check_scores("emd run", s, EXPECTED_KEYS | EMD_KEYS)
     if launches["emd_block"] <= 0 or launches["cd_block"] <= 0:
         raise AssertionError(f"the EMD path's launches: {launches}")
     R, C = min(ROW_BLOCK, num_test), min(CD_BATCH, num_test)
     pairs = sum(R * C for _ in block_schedule(num_test, num_test, R, C, True)) * 2 + \
         sum(R * C for _ in block_schedule(num_test, num_test, R, C, False))
-    protocol = protocol_launches()
+    protocol_pairs = protocol_launches() * ROW_BLOCK * CD_BATCH
+    us_per_pair = t["pairwise_emd"] / pairs * 1e6
     print("scores (generated vs test, cd,emd):", json.dumps(s, sort_keys=True))
     print("stages:", json.dumps({"emd_run_s": wall, "num_test": num_test, "emd_pairs": pairs,
                                  "emd_block_launches": launches["emd_block"],
-                                 "emd_us_per_pair": t["pairwise_emd"] / pairs * 1e6,
-                                 "generated": t}))
-    print(f"emd_block launches in one 5000-scan run: {protocol} (16,512) blocks; "
-          f"projected pairwise EMD time {protocol * block_ms / 1e3:.0f} s at "
-          f"{block_ms:.1f} ms a block")
+                                 "emd_us_per_pair": us_per_pair, "generated": t}))
+    rows, cols = first[0]
+    print(f"the run's first ({rows.shape[0]},{cols.shape[0]}) block: an EMD_SKIP build "
+          f"would leave out {skip_share(rows, cols):.4f} of the weight evaluations")
+    print(f"emd_block in one 5000-scan run: {protocol_launches()} (16,512) blocks, "
+          f"{protocol_pairs} pairs; projected pairwise EMD time "
+          f"{protocol_pairs * us_per_pair / 1e6:.0f} s at this run's {us_per_pair:.2f} us a pair")
     return launches
 
 
@@ -910,6 +953,7 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     kernels.build()
     print(f"kernel build: {time.perf_counter() - t:.1f} s")
+    check_emd_ptxas()
 
     entries = [check_cd_block(dev)] + check_nn(dev)
     check_chamfer_grad(dev)
@@ -919,7 +963,7 @@ def main(argv=None) -> int:
     try:
         run = prepare(work, args.num_test)
         cd_launches = synthesis_path(work, run, args.num_test)
-        emd_launches = emd_path(work, run, args.emd_num_test, entries[3]["ms"])
+        emd_launches = emd_path(work, run, args.emd_num_test)
         calibration_path(work, run, args.emd_num_test, dev)
         nn_launches = reconstruction_path(work, run, args.num_step)
     finally:
