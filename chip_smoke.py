@@ -20,9 +20,7 @@
    2048-point clouds, and again with --compute-gt; then the EMD path,
    ``--metrics cd,emd`` on 256 generated scans (``--emd-num-test``), from
    whose us a pair it projects the 5000-scan protocol's EMD time, and
-   one ``--calibrate-drop-rate`` run (CD only) on 256.  For the timed K4
-   block and the EMD run's first block it prints the share of weight
-   evaluations that the unshipped ``EMD_SKIP`` build would leave out.
+   one ``--calibrate-drop-rate`` run (CD only) on 256.
 4. Drives the reconstruction path,
    ``dusty_gan_torch.cli.evaluate_reconstruction``, on the same generator
    and tree: one batch of 512 test scans, ``--num-step`` inversion steps,
@@ -61,7 +59,7 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
-from dusty_gan_torch import emd_variants, kernels  # noqa: E402
+from dusty_gan_torch import kernels  # noqa: E402
 from dusty_gan_torch.cli import evaluate_reconstruction as er  # noqa: E402
 from dusty_gan_torch.cli import evaluate_synthesis as es  # noqa: E402
 from dusty_gan_torch.config import compose, save_config  # noqa: E402
@@ -70,7 +68,6 @@ from dusty_gan_torch.metrics import chamfer_cuda, emd_cuda  # noqa: E402
 from dusty_gan_torch.metrics.chamfer import chamfer_distance  # noqa: E402
 from dusty_gan_torch.metrics.emd import (  # noqa: E402
     earth_mover_distance, earth_mover_distance_dense)
-from dusty_gan_torch.metrics import cov_mmd_1nna  # noqa: E402
 from dusty_gan_torch.metrics.cov_mmd_1nna import (  # noqa: E402
     ROW_BLOCK, block_schedule, compute_cov_mmd_1nna, pairwise_emd)
 from dusty_gan_torch.models.factory import define_G  # noqa: E402
@@ -139,11 +136,16 @@ PAIR_REL_L2 = 1e-3
 # L2 norm: float32 reaches up to 3.5e-4 on those draws; a wrong gradient
 # is off by ~1.
 EMD_GRAD_ATOL, EMD_GRAD_REL_L2 = 2e-4, 2e-3
-# per distance and annealing round (rounds 0-8; round 9 is O(N + M)): 8 FLOP
-# for d, 1 for level * d, 2 row sum, 2 column sum, 2 match mass, 6 for V;
-# K5 adds 6 for U.  One exp besides, on the special function units.
-EMD_FLOP_PER_DISTANCE_ROUND, EMD_PAIR_EXTRA_FLOP, EMD_ROUNDS = 21, 6, 9
+# What the auction needs per distance and annealing round (rounds 0-8;
+# round 9 is O(N + M)): 8 FLOP for d, 2 row sum, 2 column sum, 2 match mass,
+# and for K4 2 for d * match, for K5 6 for V and 6 for U; and one exp2 on
+# the special function units (SFU)
+EMD_K4_FLOP_PER_DISTANCE_ROUND, EMD_K5_FLOP_PER_DISTANCE_ROUND, EMD_ROUNDS = 16, 26, 9
 EMD_FLOP_PER_POINT = 20  # round 9 and the cost, per point of either cloud
+# SFU exp2 rate: 16 a clock per SM (CUDA programming guide's throughput
+# table, compute capability 9.0), 132 SMs, the 1.98 GHz boost clock that
+# the 67 TFLOP/s FP32 peak assumes
+PEAK_SFU_EXP2_PER_S = 16 * 132 * 1.98e9
 
 
 def card_line() -> str:
@@ -370,23 +372,16 @@ def gaussian(gen: torch.Generator, b: int, n: int, dev, scale: float = 0.3) -> t
 
 
 def emd_bound(pairs: int, n: int, m: int, nbytes: int, with_u: bool):
-    """(bound ms, bound_by) of an auction over ``pairs`` pairs: the larger
+    """(bound ms, bound_by) of an auction over ``pairs`` pairs: the largest
     of ``nbytes`` (each input read once, each output written once) over the
-    memory rate and the FP32 operations over the FP32 rate."""
-    flop_d = EMD_FLOP_PER_DISTANCE_ROUND + (EMD_PAIR_EXTRA_FLOP if with_u else 0)
+    memory rate, the FP32 operations over the FP32 rate and the exp2s over
+    the SFU rate."""
+    flop_d = EMD_K5_FLOP_PER_DISTANCE_ROUND if with_u else EMD_K4_FLOP_PER_DISTANCE_ROUND
     flops = pairs * (EMD_ROUNDS * flop_d * n * m + EMD_FLOP_PER_POINT * (n + m))
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    exp2s = pairs * EMD_ROUNDS * n * m
+    t_ops = max(flops / PEAK_FP32_FLOP_PER_S, exp2s / PEAK_SFU_EXP2_PER_S) * 1e3
     return max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
-
-
-def skip_share(rows, cols) -> float:
-    """Share of the weight evaluations that the EMD_SKIP build of K4 (not
-    shipped) would leave out on these clouds in Morton order
-    (``emd_variants.skipped_evaluations``); no kernel runs."""
-    skipped, total = emd_variants.skipped_evaluations(emd_variants.morton_sorted(rows),
-                                                      emd_variants.morton_sorted(cols))
-    return skipped / total
 
 
 def check_emd_ptxas() -> None:
@@ -491,9 +486,7 @@ def check_emd_block(dev) -> dict:
                                    with_u=False)
     print(f"emd_block ({r},{n})x({c},{n}): kernel {ms:.3f} ms ({ms / (r * c) * 1e3:.3f} us "
           f"a pair), plain {plain_ms:.3f} ms ({plain_ms / (r * c):.3f} ms a pair), bound "
-          f"{bound_ms:.3f} ms ({bound_by}); {r * c / ms * 1e3:.0f} pairs/s; the kernel "
-          f"evaluates every weight, an EMD_SKIP build would leave out "
-          f"{skip_share(rows, cols):.4f} of them")
+          f"{bound_ms:.3f} ms ({bound_by}); {r * c / ms * 1e3:.0f} pairs/s")
     return {"name": "emd_block", "route": "cuda", "source": "dusty_gan_torch/csrc/emd.cu",
             "replaces": "dusty_gan_tpu/metrics/emd_pallas.py:307",
             "launches": None, "max_abs_err": max_abs, "ms": ms,
@@ -657,22 +650,11 @@ def emd_path(work: str, run: dict, num_test: int) -> dict:
     key and that emd_block ran; projects the 5000-scan protocol's pairwise
     EMD time from the run's us a pair; returns the run's launch counts."""
     t = {}
-    first = []
-
-    def recording(rows, cols):  # keeps the first block's clouds
-        if not first:
-            first.append((rows, cols))
-        return emd_cuda.emd_block(rows, cols)
-
-    cov_mmd_1nna.emd_block = recording
     reset_launches()
-    try:
-        t0 = time.perf_counter()
-        s = es.main(synthesis_args(work, run, num_test) + ["--metrics", "cd,emd"], timings=t)
-        wall = time.perf_counter() - t0
-        launches = launch_counts()
-    finally:
-        cov_mmd_1nna.emd_block = emd_cuda.emd_block
+    t0 = time.perf_counter()
+    s = es.main(synthesis_args(work, run, num_test) + ["--metrics", "cd,emd"], timings=t)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
     check_scores("emd run", s, EXPECTED_KEYS | EMD_KEYS)
     if launches["emd_block"] <= 0 or launches["cd_block"] <= 0:
         raise AssertionError(f"the EMD path's launches: {launches}")
@@ -685,9 +667,6 @@ def emd_path(work: str, run: dict, num_test: int) -> dict:
     print("stages:", json.dumps({"emd_run_s": wall, "num_test": num_test, "emd_pairs": pairs,
                                  "emd_block_launches": launches["emd_block"],
                                  "emd_us_per_pair": us_per_pair, "generated": t}))
-    rows, cols = first[0]
-    print(f"the run's first ({rows.shape[0]},{cols.shape[0]}) block: an EMD_SKIP build "
-          f"would leave out {skip_share(rows, cols):.4f} of the weight evaluations")
     print(f"emd_block in one 5000-scan run: {protocol_launches()} (16,512) blocks, "
           f"{protocol_pairs} pairs; projected pairwise EMD time "
           f"{protocol_pairs * us_per_pair / 1e6:.0f} s at this run's {us_per_pair:.2f} us a pair")

@@ -27,14 +27,15 @@
 //   cost = sum_n |x_n|^2 R[n] + sum_m |y_m|^2 C[m] - 2 sum_n x_n . V[n].
 //
 // What bounds it: FP32 issue and the special function unit (SFU), outside
-// the tensor cores.  Rounds 0-8 need, per distance, one exp and about 21
-// FLOPs (d 8, level*d 1, the row sum 2, the column sum 2, the match mass 2,
-// V 6; K5 adds 6 for U); round 9 (w = 1) is O(N + M).  At N = M = 2048
-// that is 0.79 GFLOP a pair, 11.8 us at the published 67 TFLOP/s; the bytes
-// (two 24 KB clouds in, one float out) are negligible.  A warp instruction
-// takes one issue slot of its SM quarter whatever its width, and an SFU
-// exp2 eight slots of the quarter's SFU, so the time is the larger of the
-// instructions and 8x the exp2s per distance.
+// the tensor cores.  Rounds 0-8 need, per distance, one exp2 and 16 FLOPs
+// for K4 (d 8, the row sum 2, the column sum 2, the match mass 2, d * match
+// 2) or 26 for K5 (V 6 and U 6 in place of d * match); round 9 (w = 1) is
+// O(N + M).  At N = M = 2048 K4 needs 0.60 GFLOP a pair, 9.0 us at the
+// published 67 TFLOP/s, and 3.8e7 exp2, 9.0 us at 16 a clock per SM (132
+// SMs, 1.98 GHz); the bytes (two 24 KB clouds in, one float out) are
+// negligible.  A warp instruction takes one issue slot of its SM quarter
+// whatever its width, and an SFU exp2 eight slots of the quarter's SFU, so
+// the time is the larger of the instructions and 8x the exp2s per distance.
 //
 // The design: one thread block of 1024 threads per pair, with the whole
 // auction state in dynamic shared memory (the clouds as float4: x, y, z
@@ -62,12 +63,11 @@
 //      the JAX dense path puts them (PERF.md trap (a)).  Not
 //      --use_fast_math, which would flush subnormals everywhere else.
 //      C's weight of round i-1 in the fused sweep of round i is w^4 from
-//      round EMD_SQUARES_FROM on (two multiplies), else a second exp2.
+//      fused round 4 on (two multiplies), else a second exp2.
 //   3. K4 sums d * match directly (E: one FFMA a distance, not V's three),
 //      which also takes the cancellation out of its cost.
 // Skipping weights that are exactly zero, by warp vote on Morton-sorted
-// clouds, did not pay on the card: EMD_SKIP builds it for measurement
-// (dusty_gan_torch/emd_variants.py; PERF.md).
+// clouds, was measured slower on the card and is not built (PERF.md).
 // Every sum has a fixed order (one thread, or a fixed pair of lanes, per
 // row or column, and a fixed-shape block reduction; no atomics), so the
 // same inputs give the same bits on every launch.
@@ -95,8 +95,6 @@ constexpr unsigned kFull = 0xffffffffu;
 // -level(i) log2(e) d and w = exp(level(i) d) = 2^-|x'' - y''|^2; s_0 is
 // kScale0 and each round halves the coordinates, exactly.
 constexpr float kScale0 = 153.743668f;  // 128 sqrt(log2(e))
-// ex2.approx.ftz of an argument below -127 is below 2^-126: flushed to +0
-constexpr float kSkipBelow = -127.f;
 
 // The auction's state in shared memory.  K4 keeps E, each row's sum of
 // d * match; K5 the residues R, V, C and U.
@@ -154,13 +152,15 @@ __device__ __forceinline__ float ex2(float a) {
 // The match step's weight of round i-1 in the fused sweep of round i,
 // exp(level(i-1) d): as level(i-1) = 4 level(i) and s_(i-1) = 2 s_i
 // exactly, it is w^4 (kSq) or 2^(4 arg).  The fourth power takes one SFU
-// operation fewer, but standing in for the weights of rounds 0 and 1 (at
-// levels -16384 and -4096) its rounding moved costs past the holds of
-// chip_smoke.py on the card; from round EMD_SQUARES_FROM on (weights of
-// round 3 on) it held them as the second exp2 does (PERF.md).
-#ifndef EMD_SQUARES_FROM
-#define EMD_SQUARES_FROM 4
-#endif
+// operation fewer, but the rounding of w, raised to the fourth, is too
+// coarse for the sharp weights of the first rounds.  Standing in for
+// rounds 0 and 1 (levels -16384 and -4096) it moved card-against-CPU
+// pairwise EMD costs 2.03e-4 off, past their hold; on 576 LiDAR-like pairs
+// the auction was 9.94e-4 from float64 with squares from fused round 1 or 2
+// on, 7.32e-4 (as with no squares) from fused round 3, 4 or 5 on.  Fused
+// rounds 1-3 take a second exp2 and rounds 4-8 the fourth power: 4.3%
+// faster than a second exp2 everywhere (PERF.md).
+constexpr int kSquaresFrom = 4;
 template <bool kSq>
 __device__ __forceinline__ float prev_weight(float w, float arg) {
   if (kSq) {
@@ -168,17 +168,6 @@ __device__ __forceinline__ float prev_weight(float w, float arg) {
     return w2 * w2;
   }
   return ex2(4.f * arg);
-}
-
-// Is this weight needed?  With EMD_SKIP, only if the argument of
-// a lane of `mask` (a NaN one too) reaches kSkipBelow; all lanes of `mask`
-// call it, lanes past the cloud's end with valid = false.
-__device__ __forceinline__ bool needed(bool valid, float arg, unsigned mask) {
-#ifdef EMD_SKIP
-  return __any_sync(mask, valid && !(arg < kSkipBelow));
-#else
-  return true;
-#endif
 }
 
 __device__ __forceinline__ void set_weight(float4* p, int i, float w) {
@@ -224,7 +213,6 @@ struct Layout {
     return kS == 1 ? threadIdx.x : (threadIdx.x >> 5) * 16 + (threadIdx.x & 15);
   }
   static __device__ int part() { return kS == 1 ? 0 : (threadIdx.x >> 4) & 1; }
-  static __device__ unsigned mask() { return kS == 1 ? kFull : 0xffffu << (16 * part()); }
 };
 
 // Add a partial sum of the other part (the same bits in both).
@@ -259,14 +247,12 @@ __device__ void row_sweep(const State& s, int n0, int N, int M, float half, floa
   }
   const int share = (M + L::kS - 1) / L::kS, lo = L::part() * share;
   const int hi = min(M, lo + share);
-  const unsigned mask = L::mask();
   for (int m = lo; m < hi; ++m) {
     const float4 q = s.yw[m];  // q.w = ratio_r (kC)
     const float rr = kA ? s.remain_r[m] : 0.f;
 #pragma unroll
     for (int r = 0; r < kR; ++r) {
       const float arg = neg_sq_dist(px[r], py[r], pz[r], q);
-      if (!needed(valid[r], arg, mask)) continue;
       const float w = ex2(arg);
       if (kA) a[r] = fmaf(w, rr, a[r]);
       if (kC) {
@@ -331,14 +317,11 @@ __device__ void col_sweep(const State& s, int m0, int N, int M, float next, floa
   }
   const int share = (N + L::kS - 1) / L::kS, lo = L::part() * share;
   const int hi = min(N, lo + share);
-  const unsigned mask = L::mask();
   for (int n = lo; n < hi; ++n) {
     const float4 p = s.xw[n];  // p.w = ratio_l[n]
 #pragma unroll
     for (int k = 0; k < kK; ++k) {
-      const float arg = neg_sq_dist(qx[k], qy[k], qz[k], p);
-      if (!needed(valid[k], arg, mask)) continue;
-      const float wl = ex2(arg) * p.w;
+      const float wl = ex2(neg_sq_dist(qx[k], qy[k], qz[k], p)) * p.w;
       acc[k] += wl;
       if (kU) {
         a0[k] = fmaf(wl, p.x, a0[k]);
@@ -432,7 +415,7 @@ __device__ float auction(const State& s, const float* __restrict__ x,
   __syncthreads();
   for (int i = 1; i < 9; ++i) {
     inv_s *= 2.f;
-    if (i >= EMD_SQUARES_FROM) rows<true, true, kU, true>(s, N, M, 0.5f, inv_s);
+    if (i >= kSquaresFrom) rows<true, true, kU, true>(s, N, M, 0.5f, inv_s);
     else rows<true, true, kU, false>(s, N, M, 0.5f, inv_s);
     __syncthreads();
     cols<kU>(s, N, M, i < 8 ? 0.5f : 1.f, inv_s);

@@ -5,11 +5,9 @@ Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled with
 ``<repo>/build/dusty_gan_torch/``, named by a hash of its source and flags,
 at the first call that needs it, and loaded with ``ctypes``; ``ptxas``'s
 report of each kernel's registers and spills is kept beside it
-(``ptxas_info``).  ``defines`` build a variant of a source with ``-D``
-macros (``dusty_gan_torch.emd_variants`` measures the EMD kernel's).  Nothing is
-built when a module is imported: the CPU tests import every module on a
-host without ``nvcc``.  A missing ``nvcc`` or a failed build raises; no
-caller falls back to another path.
+(``ptxas_info``).  Nothing is built when a module is imported: the CPU
+tests import every module on a host without ``nvcc``.  A missing ``nvcc``
+or a failed build raises; no caller falls back to another path.
 """
 
 from __future__ import annotations
@@ -21,7 +19,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Sequence, Tuple
+from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "dusty_gan_torch"
@@ -48,7 +46,7 @@ SIGNATURES = {
     },
 }
 
-_loaded: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
+_loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
@@ -62,33 +60,29 @@ def nvcc() -> str:
     )
 
 
-def _flags(defines: Sequence[str]) -> Tuple[str, ...]:
-    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-
-
-def library_path(name: str, defines: Sequence[str] = ()) -> Path:
+def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha1(src + " ".join(_flags(defines)).encode()).hexdigest()[:16]
+    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 
-def ptxas_info(name: str, defines: Sequence[str] = ()) -> str:
+def ptxas_info(name: str) -> str:
     """ptxas's lines (registers, shared memory, spills per kernel) from the
     build of ``csrc/<name>.cu``."""
-    log = library_path(name, defines).with_suffix(".log").read_text()
+    log = library_path(name).with_suffix(".log").read_text()
     return "\n".join(line for line in log.splitlines()
                      if "ptxas" in line or "spill" in line)
 
 
-def _start_build(name: str, defines: Sequence[str] = ()):
+def _start_build(name: str):
     """Start nvcc for one source; returns (process, tmp, target) or None if
     the library is already built."""
-    target = library_path(name, defines)
+    target = library_path(name)
     if target.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [nvcc(), *_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return proc, tmp, target
@@ -105,27 +99,25 @@ def _finish_build(name: str, started) -> None:
     os.replace(tmp, target)  # atomic: concurrent builds race harmlessly
 
 
-def build(names: Iterable[str] = tuple(SIGNATURES),
-          variants: Iterable[Tuple[str, Tuple[str, ...]]] = ()) -> None:
-    """Compile the given kernels and (name, defines) variants, one nvcc
-    process per library, all started together."""
-    started = [(n, _start_build(n, d)) for n, d in [(n, ()) for n in names] + list(variants)]
-    for n, s in started:
+def build(names: Iterable[str] = tuple(SIGNATURES)) -> None:
+    """Compile the given kernels, one nvcc process per source, all started
+    together."""
+    started = {n: _start_build(n) for n in names}
+    for n, s in started.items():
         if s is not None:
             _finish_build(n, s)
 
 
-def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu`` (with ``-D`` ``defines``),
-    built first if needed."""
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     with _lock:
-        lib = _loaded.get((name, defines))
+        lib = _loaded.get(name)
         if lib is None:
-            build((), [(name, defines)])
-            lib = ctypes.CDLL(str(library_path(name, defines)))
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
             for fn, (restype, argtypes) in SIGNATURES[name].items():
                 f = getattr(lib, fn)
                 f.restype = restype
                 f.argtypes = argtypes
-            _loaded[(name, defines)] = lib
+            _loaded[name] = lib
         return lib

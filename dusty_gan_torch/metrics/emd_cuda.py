@@ -151,28 +151,21 @@ def _raise_on(lib, err: int, name: str):
                            f"({lib.emd_error_string(err).decode()})")
 
 
-def block_launch(lib, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
-    """One launch of ``lib``'s K4 on checked CUDA clouds, in the order given:
-    the (R, C) costs."""
-    r, n, _ = rows.shape
-    c, m, _ = cols.shape
-    out = torch.empty((r, c), dtype=torch.float32, device=rows.device)
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
-        err = lib.emd_block_launch(rows.data_ptr(), cols.data_ptr(), out.data_ptr(),
-                                   r, c, n, m, stream)
-    _raise_on(lib, err, "emd_block")
-    return out
-
-
 def emd_block(rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
     """(R, N, 3), (C, M, 3) float32 -> (R, C) float32 auction costs
     (kernel K4)."""
     _check(rows, cols, paired=False)
     if rows.device.type == "cpu":
         return emd_block_reference(rows, cols)
-    lib = _lib(rows, cols, rows.shape[0] * cols.shape[0], rows.shape[1], cols.shape[1])
-    out = block_launch(lib, rows, cols)
+    r, n, _ = rows.shape
+    c, m, _ = cols.shape
+    lib = _lib(rows, cols, r * c, n, m)
+    out = torch.empty((r, c), dtype=torch.float32, device=rows.device)
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream(rows.device).cuda_stream
+        err = lib.emd_block_launch(rows.data_ptr(), cols.data_ptr(), out.data_ptr(),
+                                   r, c, n, m, stream)
+    _raise_on(lib, err, "emd_block")
     emd_block.launches += 1
     return out
 

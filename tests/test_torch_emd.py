@@ -12,6 +12,11 @@
   cost with the match held constant: atol 2e-4.
 * The pairwise EMD matrices and COV/MMD/1-NNA over CD and EMD: values
   rtol 1e-4, counts equal.
+* The auction is permutation-equivariant: the plain versions on clouds in
+  another point order give the same costs (rtol 1e-5, only the float32
+  sum order differs) and the residues permuted alike.
+* The build helpers of ``kernels.py`` that ``chip_smoke.py`` reads ptxas's
+  report through.
 """
 
 import jax
@@ -25,6 +30,7 @@ from dusty_gan_tpu.metrics.cov_mmd_1nna import _pairwise_distance as jax_pairwis
 from dusty_gan_tpu.metrics.cov_mmd_1nna import compute_cov_mmd_1nna as jax_cov
 from dusty_gan_tpu.metrics.emd_pallas import emd_block_pallas, emd_pair_pallas
 
+from dusty_gan_torch import kernels
 from dusty_gan_torch.metrics import emd_cuda
 from dusty_gan_torch.metrics.cov_mmd_1nna import compute_cov_mmd_1nna, pairwise_emd
 from dusty_gan_torch.metrics.emd import (approx_match, compute_emd, earth_mover_distance,
@@ -39,6 +45,18 @@ COUNT_KEYS = tuple(f"{k}-{m}" for m in ("cd", "emd") for k in (
 def _clouds(seed, b, n, scale=0.3):
     rng = np.random.RandomState(seed)
     return (scale * rng.randn(b, n, 3)).astype(np.float32)
+
+
+def _lidar_like(seed, b, n):
+    """Unit-space LiDAR-like clouds: uniform in [-0.8, 0.8]^3 with a fifth
+    of the points at the origin (equal points)."""
+    rng = np.random.RandomState(seed)
+    p = (rng.rand(b, n, 3) * 1.6 - 0.8).astype(np.float32)
+    p[rng.rand(b, n) < 0.2] = 0.0
+    return p
+
+
+CLOUD_KINDS = {"gaussian": _clouds, "lidar_like": _lidar_like}
 
 
 def _t(a):
@@ -243,3 +261,48 @@ def test_unknown_metric_raises(metrics):
     t = torch.zeros(2, 4, 3)
     with pytest.raises(ValueError, match="metrics"):
         compute_cov_mmd_1nna(t, t, 2, metrics)
+
+
+@pytest.mark.parametrize("kind", list(CLOUD_KINDS))
+def test_block_reference_is_permutation_equivariant(kind):
+    """The costs do not depend on the order of either cloud's points."""
+    rows, cols = _t(CLOUD_KINDS[kind](26, 2, 128)), _t(CLOUD_KINDS[kind](27, 3, 96))
+    g = torch.Generator().manual_seed(0)
+    pr, pc = torch.randperm(128, generator=g), torch.randperm(96, generator=g)
+    np.testing.assert_allclose(emd_block_reference(rows[:, pr], cols[:, pc]).numpy(),
+                               emd_block_reference(rows, cols).numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("kind", list(CLOUD_KINDS))
+def test_pair_reference_residues_follow_a_permutation(kind):
+    """Permuting the points permutes R and V with the rows, C and U with the
+    columns, and leaves the cost."""
+    x, y = _t(CLOUD_KINDS[kind](28, 2, 96)), _t(CLOUD_KINDS[kind](29, 2, 96))
+    g = torch.Generator().manual_seed(1)
+    pr, pc = torch.randperm(96, generator=g), torch.randperm(96, generator=g)
+    want = emd_pair_reference(x, y)
+    got = emd_pair_reference(x[:, pr], y[:, pc])
+    np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), rtol=1e-5)
+    for name, g_, w, perm in zip("RCVU", got[1:], want[1:], (pr, pc, pr, pc)):
+        np.testing.assert_allclose(g_.numpy(), w[:, perm].numpy(), atol=1e-5, err_msg=name)
+
+
+def test_library_path_tags_source_and_flags(monkeypatch):
+    path = kernels.library_path("emd")
+    assert path.parent == kernels.BUILD_DIR and path.name.startswith("libemd-")
+    assert path.suffix == ".so" and kernels.library_path("emd") == path
+    assert ("-Xptxas", "-v") == kernels.NVCC_FLAGS[-2:]  # ptxas reports every build
+    monkeypatch.setattr(kernels, "NVCC_FLAGS", kernels.NVCC_FLAGS + ("-lineinfo",))
+    assert kernels.library_path("emd") != path
+
+
+def test_ptxas_info_keeps_register_and_spill_lines(tmp_path, monkeypatch):
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
+    kernels.library_path("emd").with_suffix(".log").write_text(
+        "ptxas info    : Compiling entry function 'k' for 'sm_90a'\n"
+        "ptxas info    : Function properties for k\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 64 registers, used 1 barriers\n"
+        "some other line\n")
+    info = kernels.ptxas_info("emd").splitlines()
+    assert len(info) == 4 and "spill stores" in info[2] and "64 registers" in info[3]
