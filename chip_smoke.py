@@ -5,14 +5,18 @@
 1. Prints the card's name and power limit and the torch version, and
    builds every CUDA kernel of the port from ``dusty_gan_torch/csrc``
    (one nvcc per source, all started together); prints ptxas's registers
-   and spills for ``emd.cu`` and fails if its kernels spill.
+   and spills for ``cd_block.cu`` and ``emd.cu`` and fails if their
+   kernels spill; counts ``cd_block``'s issued SASS instructions a
+   distance in its inner loop (``cuobjdump``).
 2. Holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes and at ragged ones, and times both: ``cd_block``
-   (K1), ``nn_dist`` (K2) and ``nn_argmin`` (K3), the latter two in every
-   instantiation the launcher can pick, ``emd_block`` (K4, also bit for
-   bit across two launches) and ``emd_pair`` (K5); and the gradients of
-   ``chamfer_distance`` and ``earth_mover_distance`` against autograd
-   through the dense plain versions.
+   (K1, also at the edges of its tiling, on both of its branches, and bit
+   for bit across two launches), ``nn_dist`` (K2) and ``nn_argmin`` (K3),
+   the latter two in every instantiation the launcher can pick,
+   ``emd_block`` (K4, also bit for bit across two launches) and
+   ``emd_pair`` (K5); and the gradients of ``chamfer_distance`` and
+   ``earth_mover_distance`` against autograd through the dense plain
+   versions.
 3. Drives the synthesis path, ``dusty_gan_torch.cli.evaluate_synthesis``,
    for the full-width DUSty-II generator (configs/model/dusty2_dcgan_eqlr.yaml,
    64x256 KITTI) with seeded random weights on a synthetic KITTI tree:
@@ -48,6 +52,7 @@ import glob
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -86,6 +91,12 @@ PEAK_BF16_FLOP_PER_S = 989e12
 # 3 subtractions, 3 multiplies and 2 additions per squared distance (the
 # min is not counted); a pair needs at least N*M distances
 FLOP_PER_DISTANCE = 8
+# K1's explicit form issues at least 8 instructions a distance (3 FADD, 1
+# FMUL, 2 FFMA, and 2 FMNMX for its row's and its column's minimum); an SM
+# issues 4 warp instructions a clock (one per scheduler) at the 1.98 GHz
+# boost clock
+CD_INSTR_PER_DISTANCE = 8
+PEAK_THREAD_INSTR_PER_S = 132 * 4 * 32 * 1.98e9
 CD_RTOL, CD_ATOL = 1e-5, 1e-6  # as tests/test_chamfer_pallas.py
 NUM_TEST, NUM_POINTS, CD_BATCH = 512, 2048, 512
 NUM_STEP, REC_BATCH, SCAN_POINTS = 1000, 512, 64 * 256
@@ -178,39 +189,76 @@ def clouds(gen: torch.Generator, b: int, n: int, dev) -> torch.Tensor:
 
 
 def check_cd_block(dev) -> dict:
-    """Kernel against the plain version at the main path's block shape and
-    at ragged ones; times both at the main path's shape."""
+    """Kernel against the plain version at the main path's block shape, at
+    ragged ones and at the edges of the kernel's tiling (2048 query points a
+    tile, 1024 partner points a chunk, groups of 32), on both of its
+    branches; bit for bit across two launches; times both at the main
+    path's shape."""
     g = torch.Generator().manual_seed(0)
-    shapes = [((ROW_BLOCK, NUM_POINTS), (CD_BATCH, NUM_POINTS)),  # main path
-              ((4, 100), (3, 77)),        # ragged N and M
-              ((5, 300), (7, 1000)),      # N != M
-              ((3, 3000), (2, 5000))]     # more than one shared-memory chunk
+    shapes = [("main path", (ROW_BLOCK, NUM_POINTS), (CD_BATCH, NUM_POINTS)),
+              ("ragged N and M", (4, 100), (3, 77)),
+              ("N != M", (5, 300), (7, 1000)),
+              ("more than one chunk", (3, 3000), (2, 5000)),
+              ("1-point row clouds", (3, 1), (4, NUM_POINTS)),
+              ("1-point column clouds", (4, NUM_POINTS), (3, 1)),
+              ("1-point clouds", (2, 1), (3, 1)),
+              ("tile - 1 x tile + 1", (2, 2047), (3, 2049)),
+              ("tile + 1 x chunk + 1", (3, 2049), (2, 1025)),
+              ("chunk - 1 x group - 1", (2, 1023), (2, 31)),
+              ("N >> M", (2, 6000), (3, 7)),
+              ("M >> N", (3, 9), (2, 6000)),
+              ("self pair", (4, NUM_POINTS), None),
+              ("columns past the chunk, buffer > 48 KB", (2, 20000), (2, 16384)),
+              # one pass keeps the smaller cloud's minima in shared memory, at
+              # most 49,888 points (227 KB a block); past that, two one-way
+              # passes
+              ("two one-way passes", (1, 49889), (1, 49889))]
     max_abs = max_rel = 0.0
-    for (r, n), (c, m) in shapes:
-        rows, cols = clouds(g, r, n, dev), clouds(g, c, m, dev)
+    for name, (r, n), cm in shapes:
+        rows = clouds(g, r, n, dev)
+        cols = rows if cm is None else clouds(g, *cm, dev)
+        c, m = cols.shape[:2]
         got = chamfer_cuda.cd_block(rows, cols)
         torch.cuda.synchronize()
         want = chamfer_cuda.cd_block_reference(rows, cols)
+        diag = None if cm is not None else float(got.diagonal().abs().max())
         err = (got - want).abs()
         bad = err > CD_ATOL + CD_RTOL * want.abs()
         ma, mr = float(err.max()), float((err / want.abs().clamp_min(1e-30)).max())
-        print(f"cd_block ({r},{n})x({c},{m}): max_abs_err {ma:.3e} "
-              f"max_rel_err {mr:.3e} (rtol {CD_RTOL}, atol {CD_ATOL})")
+        print(f"cd_block ({r},{n})x({c},{m}) {name}: max_abs_err {ma:.3e} "
+              f"max_rel_err {mr:.3e} (rtol {CD_RTOL}, atol {CD_ATOL})"
+              + (f"; diagonal max {diag:.3e}" if diag is not None else ""))
         if bool(bad.any()):
             raise AssertionError(f"cd_block disagrees with its plain version at "
                                  f"({r},{n})x({c},{m}): {int(bad.sum())} entries")
         max_abs, max_rel = max(max_abs, ma), max(max_rel, mr)
+        del rows, cols, got, want, err, bad
+        torch.cuda.empty_cache()  # the last plain version holds ~40 GB of distances
 
-    (r, n), (c, m) = shapes[0]
+    _, (r, n), (c, m) = shapes[0]
     rows, cols = clouds(g, r, n, dev), clouds(g, c, m, dev)
-    ms = cuda_ms(lambda: chamfer_cuda.cd_block(rows, cols), iters=10)
-    plain_ms = cuda_ms(lambda: chamfer_cuda.cd_block_reference(rows, cols), iters=2)
+    if not torch.equal(chamfer_cuda.cd_block(rows, cols), chamfer_cuda.cd_block(rows, cols)):
+        raise AssertionError("cd_block gives other bits on a second launch")
+    print("cd_block: two launches on the timed block are equal bit for bit")
+    got, want = {}, {}
+    ms = cuda_ms(lambda: got.__setitem__(0, chamfer_cuda.cd_block(rows, cols)), iters=10)
+    plain_ms = cuda_ms(lambda: want.__setitem__(0, chamfer_cuda.cd_block_reference(rows, cols)),
+                       iters=2)
+    err = (got[0] - want[0]).abs()
+    if bool((err > CD_ATOL + CD_RTOL * want[0].abs()).any()):
+        raise AssertionError(f"cd_block's timed output disagrees with its plain version: "
+                             f"max abs err {float(err.max())}")
+    max_abs = max(max_abs, float(err.max()))
     nbytes = 4 * (rows.numel() + cols.numel() + r * c)
-    flops = FLOP_PER_DISTANCE * n * m * r * c
+    distances = n * m * r * c
+    flops = FLOP_PER_DISTANCE * distances
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOP_PER_S * 1e3
     bound_ms = max(t_bytes, t_ops)
+    issue_ms = CD_INSTR_PER_DISTANCE * distances / PEAK_THREAD_INSTR_PER_S * 1e3
     print(f"cd_block ({r},{n})x({c},{m}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {bound_ms:.3f} ms ({flops / 1e9:.1f} GFLOP fp32, {nbytes / 1e6:.2f} MB); "
+          f"bound {bound_ms:.3f} ms ({flops / 1e9:.1f} GFLOP fp32, {nbytes / 1e6:.2f} MB), "
+          f"issue floor of the explicit form {issue_ms:.3f} ms ({CD_INSTR_PER_DISTANCE} "
+          f"instructions a distance, 4 warp instructions a clock per SM); "
           f"{r * c / ms * 1e3:.0f} pairs/s")
     return {"name": "cd_block", "route": "cuda",
             "source": "dusty_gan_torch/csrc/cd_block.cu",
@@ -219,6 +267,68 @@ def check_cd_block(dev) -> dict:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None}
+
+
+def sass_loops(sass: str, function: str) -> list:
+    """Innermost loops of one kernel in ``cuobjdump -sass`` output: a list
+    of each loop's instructions (opcode and operands), from its backward
+    branch's target to the branch."""
+    lines = sass.splitlines()
+    start = next(i for i, line in enumerate(lines)
+                 if "Function :" in line and function in line)
+    insts, labels = [], {}
+    for line in lines[start + 1:]:
+        if "Function :" in line:
+            break
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            labels[label.group(1)] = len(insts)
+        found = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if found:
+            insts.append((int(found.group(1), 16), found.group(2)))
+    index_of = {addr: k for k, (addr, _) in enumerate(insts)}
+    # code after the first unpredicated EXIT is out of line (the divergent
+    # paths of warp shuffles), and its branches back are not loops
+    end = next((k for k, (_, text) in enumerate(insts) if text.startswith("EXIT")),
+               len(insts))
+    loops = []
+    for k, (_, text) in enumerate(insts[:end]):
+        if not re.search(r"\bBRA\b", text):
+            continue
+        target = re.search(r"\(?(\.L_x_\d+)\)?", text)
+        if target and target.group(1) in labels:
+            t = labels[target.group(1)]
+        else:
+            addr = re.search(r"0x([0-9a-f]+)", text)
+            t = index_of.get(int(addr.group(1), 16)) if addr else None
+        if t is not None and t <= k:
+            loops.append((t, k))
+    inner = [(a, b) for a, b in loops
+             if not any((a, b) != (c, d) and a <= c and d <= b for c, d in loops)]
+    return [[text for _, text in insts[a:b + 1]] for a, b in inner]
+
+
+def cd_sass_per_distance() -> dict:
+    """Issued SASS instructions a distance in the inner loop of the one-pass
+    K1 kernel, from ``cuobjdump -sass`` of the built library: the innermost
+    loop with the most FMULs (one a distance: dx*dx) and its instructions
+    over them; opcodes counted.  "not measured" without cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {"instructions_per_distance": "not measured (no cuobjdump)"}
+    sass = subprocess.run([tool, "-sass", str(kernels.library_path("cd_block"))],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    opcode = lambda t: re.sub(r"^@!?U?P\w+\s+", "", t).split()[0].split(".")[0]  # noqa: E731
+    loop = max(sass_loops(sass, "cd_block_kernelILb1E"),
+               key=lambda body: sum(opcode(t) == "FMUL" for t in body))
+    counts = {}
+    for t in loop:
+        counts[opcode(t)] = counts.get(opcode(t), 0) + 1
+    distances = counts.get("FMUL", 0)
+    return {"loop_instructions": len(loop), "distances": distances,
+            "instructions_per_distance": len(loop) / distances if distances else
+            "not measured (no FMUL in the loop)",
+            "opcodes": dict(sorted(counts.items(), key=lambda kv: -kv[1]))}
 
 
 def protocol_launches(n: int = 5000) -> int:
@@ -384,16 +494,16 @@ def emd_bound(pairs: int, n: int, m: int, nbytes: int, with_u: bool):
     return max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def check_emd_ptxas() -> None:
-    """Print ptxas's registers and spills for csrc/emd.cu's two kernels and
-    fail if either spills."""
-    info = kernels.ptxas_info("emd")
-    print("ptxas, emd.cu:\n" + info)
+def check_ptxas(name: str, count: int) -> None:
+    """Print ptxas's registers and spills for the ``count`` kernels of
+    ``csrc/<name>.cu`` and fail if any spills."""
+    info = kernels.ptxas_info(name)
+    print(f"ptxas, {name}.cu:\n" + info)
     spills = [line for line in info.splitlines() if "spill" in line]
-    if len(spills) != 2 or any(not line.strip().startswith("0 bytes stack frame, 0 bytes "
-                                                           "spill stores, 0 bytes spill loads")
-                               for line in spills):
-        raise AssertionError(f"emd.cu's kernels spill or ptxas said otherwise: {spills}")
+    if len(spills) != count or any(not line.strip().startswith(
+            "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")
+            for line in spills):
+        raise AssertionError(f"{name}.cu's kernels spill or ptxas said otherwise: {spills}")
 
 
 def hold_emd(name: str, got, want, atol: float, rtol: float, diag=None) -> float:
@@ -932,7 +1042,9 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     kernels.build()
     print(f"kernel build: {time.perf_counter() - t:.1f} s")
-    check_emd_ptxas()
+    check_ptxas("cd_block", 2)  # the one-pass and the two-pass instantiation
+    check_ptxas("emd", 2)
+    print("cd_block SASS, inner loop:", json.dumps(cd_sass_per_distance()))
 
     entries = [check_cd_block(dev)] + check_nn(dev)
     check_chamfer_grad(dev)

@@ -115,14 +115,25 @@ def test_swd_default_draws_are_seeded():
 
 
 @pytest.mark.parametrize("shapes", [((5, 256), (3, 128)), ((4, 100), (2, 77)),
-                                    ((3, 64), (4, 200)), ((2, 300), (3, 300))])
+                                    ((3, 64), (4, 200)), ((2, 300), (3, 300)),
+                                    ((3, 1), (4, 64)),     # 1-point row clouds
+                                    ((3, 64), (2, 1)),     # 1-point column clouds
+                                    ((2, 500), (3, 5)),    # N >> M
+                                    ((3, 200), None),      # a self pair
+                                    # M past the Pallas kernel's one-pass tile
+                                    # (_TM = 2048): its two-pass branch
+                                    ((2, 64), (2, 2049))])
 def test_cd_block_reference_matches_pallas(shapes):
-    (r, n), (c, m) = shapes
-    a, b = _clouds(5, r, n), _clouds(6, c, m)
+    (r, n), cm = shapes
+    a = _clouds(5, r, n)
+    b = a if cm is None else _clouds(6, *cm)
+    c, m = b.shape[:2]
     want = np.asarray(cd_block_pallas(jnp.asarray(a), jnp.asarray(b), interpret=True))
     got = cd_block_reference(torch.from_numpy(a), torch.from_numpy(b))
     assert got.shape == (r, c) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    if cm is None:
+        np.testing.assert_array_equal(np.diag(got.numpy()), 0.0)
 
 
 def test_cd_block_wrapper_on_cpu_uses_plain_version():
