@@ -5,31 +5,38 @@
 1. Prints the card's name and power limit and the torch version, and
    builds every CUDA kernel of the port from ``dusty_gan_torch/csrc``
    (one nvcc per source, all started together); prints ptxas's registers
-   and spills for ``cd_block.cu`` and ``emd.cu`` and fails if their
-   kernels spill; counts ``cd_block``'s issued SASS instructions a
+   and spills for ``cd_block.cu``, ``emd.cu`` and ``nn.cu`` and fails if
+   their kernels spill; counts ``cd_block``'s issued SASS instructions a
    distance in its inner loop (``cuobjdump``).
 2. Holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes and at ragged ones, and times both: ``cd_block``
    (K1, also at the edges of its tiling, on both of its branches, and bit
-   for bit across two launches), ``nn_dist`` (K2) and ``nn_argmin`` (K3),
-   the latter two in every instantiation the launcher can pick,
-   ``emd_block`` (K4, also bit for bit across two launches) and
-   ``emd_pair`` (K5); and the gradients of ``chamfer_distance`` and
-   ``earth_mover_distance`` against autograd through the dense plain
-   versions.
+   for bit across two launches), ``nn_dist`` (K2) and ``nn_argmin`` (K3)
+   (at the edges of their culled design; equal distances bit for bit,
+   indices equal the plain version's; the distances each pass formed, by
+   the counting instantiation, on uniform clouds, on clouds where nothing
+   can be culled, where K2 is held to 1.2x the brute-force kernel's time,
+   and on the reconstruction path's own clouds), ``emd_block`` (K4, also
+   bit for bit across two launches) and ``emd_pair`` (K5), both also above
+   3072 points on their device-memory path, with a full-scan (1, 16384)^2
+   K5 launch against a float64 auction; and the gradients of
+   ``chamfer_distance`` and ``earth_mover_distance`` against autograd
+   through the dense plain versions.
 3. Drives the synthesis path, ``dusty_gan_torch.cli.evaluate_synthesis``,
    for the full-width DUSty-II generator (configs/model/dusty2_dcgan_eqlr.yaml,
    64x256 KITTI) with seeded random weights on a synthetic KITTI tree:
    512 test scans (``--num-test``; 5000 is the paper's protocol),
    2048-point clouds, and again with --compute-gt; then the EMD path,
    ``--metrics cd,emd`` on 256 generated scans (``--emd-num-test``), from
-   whose us a pair it projects the 5000-scan protocol's EMD time, and
-   one ``--calibrate-drop-rate`` run (CD only) on 256.
+   whose us a pair it projects the 5000-scan protocol's EMD time, again
+   at 4096 points a cloud on 32 scans (the EMD kernels' device-memory
+   path), and one ``--calibrate-drop-rate`` run (CD only) on 256.
 4. Drives the reconstruction path,
    ``dusty_gan_torch.cli.evaluate_reconstruction``, on the same generator
    and tree: one batch of 512 test scans, ``--num-step`` inversion steps,
    Chamfer distance on the full 16,384-point clouds; checks the CSV, that
-   the masked loss fell, and profiles a few inversion steps.
+   the masked loss fell, counts the distances K2 formed on the path's own
+   clouds, and profiles a few inversion steps.
    Each path's kernel launch counts are set to 0 just before it and read
    just after.
 5. Checks the scores (every key, finite) and, on small inputs, the card's
@@ -69,7 +76,7 @@ from dusty_gan_torch.cli import evaluate_reconstruction as er  # noqa: E402
 from dusty_gan_torch.cli import evaluate_synthesis as es  # noqa: E402
 from dusty_gan_torch.config import compose, save_config  # noqa: E402
 from dusty_gan_torch.data.synthetic import build_synthetic_kitti  # noqa: E402
-from dusty_gan_torch.metrics import chamfer_cuda, emd_cuda  # noqa: E402
+from dusty_gan_torch.metrics import chamfer, chamfer_cuda, emd_cuda  # noqa: E402
 from dusty_gan_torch.metrics.chamfer import chamfer_distance  # noqa: E402
 from dusty_gan_torch.metrics.emd import (  # noqa: E402
     earth_mover_distance, earth_mover_distance_dense)
@@ -99,6 +106,12 @@ CD_INSTR_PER_DISTANCE = 8
 PEAK_THREAD_INSTR_PER_S = 132 * 4 * 32 * 1.98e9
 CD_RTOL, CD_ATOL = 1e-5, 1e-6  # as tests/test_chamfer_pallas.py
 NUM_TEST, NUM_POINTS, CD_BATCH = 512, 2048, 512
+# the --metrics cd,emd run above the EMD kernels' shared-memory path
+EMD_LARGE_POINTS, EMD_LARGE_NUM_TEST = 4096, 32
+# K2 on clouds where no partner group can be culled: within 1.2x of the
+# brute-force kernel's 34.46 ms a (512, 16384)^2 launch (NVIDIA H100 80GB
+# HBM3, 700 W, the slowest of its runs in PERF.md)
+NN_ADVERSARIAL_MS = 1.2 * 34.46
 NUM_STEP, REC_BATCH, SCAN_POINTS = 1000, 512, 64 * 256
 # the JAX CLI's CSV header (dusty_gan_tpu/cli/evaluate_reconstruction.py)
 REC_CSV_HEADER = ["", "cd", "accuracy_1", "accuracy_2", "accuracy_3", "rmse",
@@ -339,109 +352,197 @@ def protocol_launches(n: int = 5000) -> int:
     return 2 * sym + len(list(block_schedule(n, n, R, C, False)))
 
 
-def nn_bound(b: int, n: int, m: int):
+def nn_bound(b: int, n: int, m: int, distances: int):
     """(bound ms, bound_by) of one nearest-neighbour launch: the larger of
     its bytes (both clouds read, distances and indices written) over the
-    memory rate and its B*N*M distances over the FP32 rate."""
+    memory rate and ``distances`` (B*N*M for brute force, or the
+    distances a culled launch formed) over the FP32 rate."""
     nbytes = 4 * (b * n * 3 + b * m * 3 + 2 * b * n)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = FLOP_PER_DISTANCE * b * n * m / PEAK_FP32_FLOP_PER_S * 1e3
+    t_ops = FLOP_PER_DISTANCE * distances / PEAK_FP32_FLOP_PER_S * 1e3
     return max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def hold_nn(x, y, got_d, want_d, got_i=None, want_i=None) -> tuple:
-    """One K2 or K3 result against ``nn_reference``'s: distances within
-    rtol 1e-5 / atol 1e-6; indices equal, or, where they differ (the kernel
-    contracts to fused multiply-adds, so a near-tie can round the other
-    way), the two candidates' distances agree within the same tolerance.
-    Returns (max abs error, index mismatches)."""
+def hold_nn(x, y, got_d, want_d, got_i=None, want_i=None) -> dict:
+    """One K2 or K3 result against ``nn_reference``'s, which forms the same
+    distance expression: distances within rtol 1e-5 / atol 1e-6 (and
+    counted where their bits differ); indices equal wherever the distances
+    are, and where the distances differ, the kernel's index must reach its
+    own distance.  Returns the max abs error and the counts."""
     e = (got_d - want_d).abs()
     if bool((e > CD_ATOL + CD_RTOL * want_d.abs()).any()):
         raise AssertionError(f"distances disagree with nn_reference at {tuple(x.shape)}"
                              f"x{tuple(y.shape)}: max abs err {float(e.max())}")
+    same = got_d == want_d
+    out = {"max_abs_err": float(e.max()), "distances_not_bit_equal": int((~same).sum())}
     if got_i is None:
-        return float(e.max()), 0
+        return out
     diff = got_i != want_i
+    if bool((diff & same).any()):
+        raise AssertionError(f"nn_argmin's index differs from nn_reference's where the "
+                             f"distances are equal at {tuple(x.shape)}x{tuple(y.shape)}: "
+                             f"{int((diff & same).sum())} queries")
     if bool(diff.any()):
-        def dist_at(idx):
-            near = torch.gather(y, 1, idx.long()[..., None].expand(-1, -1, 3))
-            return ((x - near) ** 2).sum(-1)[diff]
-        da, db = dist_at(got_i), dist_at(want_i)
-        if bool(((da - db).abs() > CD_ATOL + CD_RTOL * db.abs()).any()):
-            raise AssertionError(f"nn_argmin picks a farther point than nn_reference "
-                                 f"at {tuple(x.shape)}x{tuple(y.shape)}")
-    return float(e.max()), int(diff.sum())
+        near = torch.gather(y, 1, got_i.long()[..., None].expand(-1, -1, 3))
+        if bool((chamfer_cuda._sq_dist_fma(x[..., None, :], near[..., None, :])[..., 0, 0]
+                 != got_d)[diff].any()):
+            raise AssertionError("nn_argmin's index does not reach its distance")
+    out["index_mismatches"] = int(diff.sum())
+    return out
+
+
+def adversarial(gen: torch.Generator, b: int, n: int, dev):
+    """Clouds where no partner group can be culled: queries in a ball of
+    radius 1e-3 at the origin, partners on the sphere of radius 0.8, so
+    every group's box is about as near the queries as their minima."""
+    q = torch.randn((b, n, 3), generator=gen) * 1e-3
+    p = torch.randn((b, n, 3), generator=gen)
+    return q.to(dev), (0.8 * p / p.norm(dim=2, keepdim=True)).to(dev)
+
+
+def nn_work(entries: list, name: str, x, y) -> tuple:
+    """The distances K2's and K3's counting instantiation formed in each
+    pass on (x, y): prints them, records each kernel's evaluated share
+    under ``evaluated_share_<name>`` and returns {kernel: (pass 1, pass 2,
+    brute force)} and K2's distances."""
+    total = x.shape[0] * x.shape[1] * y.shape[1]
+    out, dist2 = {}, None
+    for e, need_idx in zip(entries, (False, True)):
+        dist, _, p1, p2 = chamfer_cuda.nn_evaluated(x, y, need_idx)
+        dist2 = dist if dist2 is None else dist2
+        if not torch.equal(dist, dist2):
+            raise AssertionError("the counting instantiations' distances differ")
+        out[e["name"]] = (p1, p2, total)
+        e[f"evaluated_share_{name}"] = (p1 + p2) / total
+        print(f"{e['name']} {name} ({x.shape[0]},{x.shape[1]})x({y.shape[0]},{y.shape[1]}): "
+              f"distances formed in pass 1 {p1} ({p1 / total:.4%}), pass 2 {p2} "
+              f"({p2 / total:.4%}) of {total}")
+    return out, dist2
 
 
 def check_nn(dev) -> list:
     """K2 (``nn_dist``) and K3 (``nn_argmin``) against ``nn_reference`` on
-    the card (``hold_nn``), at the reconstruction shape (512, 16,384)², whose
-    timed outputs are held too, and at shapes that take each of the
-    kernel's four instantiations (8, 4, 2 and 1 query points a thread):
-    small batches come from a small ``--batch-size`` and from the demo's
-    few scans.  Times both and their plain versions at the reconstruction
-    shape."""
+    the card (``hold_nn``) at the edges of the culled design: ragged N and
+    M, partner groups of 32 +- 1, a batch of 1 (the demo's), N >> M and
+    M >> N, all points at the origin, a fifth at the origin, and the
+    reconstruction shape (512, 16,384)^2 whose timed outputs are held too;
+    K2's and K3's distances bit for bit equal, and each kernel's outputs
+    across two launches.  The distances each pass formed (``nn_work``) on
+    the timed clouds (uniform, a fifth at the origin) and on clouds where
+    no group can be culled, on which K2 is held to 1.2x the brute-force
+    kernel's 34.46 ms (PERF.md); the reconstruction path's own clouds get
+    theirs after that path has run."""
     lib = kernels.load("nn")
     g = torch.Generator().manual_seed(2)
-    shapes = [(5, SCAN_POINTS, SCAN_POINTS),  # a batch of 5 scans
-              (4, SCAN_POINTS, SCAN_POINTS),  # a fifth of the points at the origin
-              (3, 300, 5000),                 # ragged
-              (5, 1000, 300),                 # N != M
-              (2, 3000, 5000)]                # M above one shared-memory chunk
+    zeros = lambda b, n: torch.zeros((b, n, 3), device=dev)  # noqa: E731
+    shapes = [("a batch of 5 scans", clouds(g, 5, SCAN_POINTS, dev), clouds(g, 5, SCAN_POINTS, dev)),
+              ("a batch of 1 scan", clouds(g, 1, SCAN_POINTS, dev), clouds(g, 1, SCAN_POINTS, dev)),
+              ("ragged N and M", clouds(g, 3, 300, dev), clouds(g, 3, 5001, dev)),
+              ("group - 1", clouds(g, 2, 1000, dev), clouds(g, 2, 31, dev)),
+              ("group + 1", clouds(g, 2, 33, dev), clouds(g, 2, 33, dev)),
+              ("1-point clouds", clouds(g, 3, 1, dev), clouds(g, 3, 1, dev)),
+              ("N >> M", clouds(g, 2, 20000, dev), clouds(g, 2, 7, dev)),
+              ("M >> N", clouds(g, 2, 9, dev), clouds(g, 2, 20000, dev)),
+              ("all points at the origin", zeros(2, 3000), zeros(2, 2000)),
+              ("queries at the origin", zeros(2, 500), clouds(g, 2, 4000, dev))]
     err = {"nn_dist": 0.0, "nn_argmin": 0.0}
-    mismatches = compared = 0
+    totals = {"mismatches": 0, "compared": 0, "not_bit_equal": 0}
     taken = {}
 
-    def hold(x, y, d2, d3, i3, want_d, want_i):
-        nonlocal mismatches, compared
+    def hold(name, x, y, d2, d3, i3, want_d, want_i):
         b, n, m = x.shape[0], x.shape[1], y.shape[1]
-        e2, _ = hold_nn(x, y, d2, want_d)
-        e3, mis = hold_nn(x, y, d3, want_d, i3, want_i)
-        err["nn_dist"], err["nn_argmin"] = max(err["nn_dist"], e2), max(err["nn_argmin"], e3)
-        mismatches, compared = mismatches + mis, compared + i3.numel()
+        if not torch.equal(d2, d3):
+            raise AssertionError(f"nn_dist's and nn_argmin's distances differ ({name})")
+        h2 = hold_nn(x, y, d2, want_d)
+        h3 = hold_nn(x, y, d3, want_d, i3, want_i)
+        err["nn_dist"] = max(err["nn_dist"], h2["max_abs_err"])
+        err["nn_argmin"] = max(err["nn_argmin"], h3["max_abs_err"])
+        totals["mismatches"] += h3["index_mismatches"]
+        totals["compared"] += i3.numel()
+        totals["not_bit_equal"] += h3["distances_not_bit_equal"]
         qpt = lib.nn_points_per_thread(b, n)
         taken[qpt] = taken.get(qpt, []) + [(b, n, m)]
-        print(f"nn ({b},{n})x({b},{m}), {qpt} query points a thread: nn_dist "
-              f"max_abs_err {e2:.3e}, nn_argmin max_abs_err {e3:.3e}, index "
-              f"mismatches {mis} of {i3.numel()}")
+        print(f"nn ({b},{n})x({b},{m}) {name}, {qpt} query points a thread: max_abs_err "
+              f"{h3['max_abs_err']:.3e}, distances not bit-equal to nn_reference "
+              f"{h3['distances_not_bit_equal']}, index mismatches {h3['index_mismatches']} "
+              f"of {i3.numel()}")
 
-    for b, n, m in shapes:
-        x, y = clouds(g, b, n, dev), clouds(g, b, m, dev)
+    for name, x, y in shapes:
         d2 = chamfer_cuda.nn_dist(x, y)
         d3, i3 = chamfer_cuda.nn_argmin(x, y)
         torch.cuda.synchronize()
-        hold(x, y, d2, d3, i3, *chamfer_cuda.nn_reference(x, y, need_idx=True))
+        hold(name, x, y, d2, d3, i3, *chamfer_cuda.nn_reference(x, y, need_idx=True))
+        if not (torch.equal(d2, chamfer_cuda.nn_dist(x, y))
+                and all(map(torch.equal, (d3, i3), chamfer_cuda.nn_argmin(x, y)))):
+            raise AssertionError(f"nn kernels give other bits on a second launch ({name})")
+    print("nn instantiations taken (query points a thread):",
+          json.dumps({str(k): v for k, v in taken.items()}))
 
     b, n = REC_BATCH, SCAN_POINTS
     x, y = clouds(g, b, n, dev), clouds(g, b, n, dev)
-    bound_ms, bound_by = nn_bound(b, n, n)
+    brute_ms, _ = nn_bound(b, n, n, b * n * n)
     got, want, entries = {}, {}, []
     for name, fn, need_idx, line in (("nn_dist", chamfer_cuda.nn_dist, False, 355),
                                      ("nn_argmin", chamfer_cuda.nn_argmin, True, 346)):
         ms = cuda_ms(lambda: got.__setitem__(name, fn(x, y)), iters=5)
         plain_ms = cuda_ms(lambda: want.__setitem__(
             name, chamfer_cuda.nn_reference(x, y, need_idx=need_idx)), iters=1, warmup=0)
-        print(f"{name} ({b},{n})x({b},{n}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"bound {bound_ms:.3f} ms ({bound_by})")
         entries.append({"name": name, "route": "cuda",
                         "source": "dusty_gan_torch/csrc/nn.cu",
                         "replaces": f"dusty_gan_tpu/metrics/chamfer_pallas.py:{line}",
-                        "launches": None, "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": None})
+                        "launches": None, "ms": ms, "plain_ms": plain_ms,
+                        "library_ms": None, "bound_brute_force_ms": brute_ms,
+                        "shape": f"({b},{n})^2 launch"})
     if not torch.equal(want["nn_dist"][0], want["nn_argmin"][0]):
         raise AssertionError("nn_reference's distances differ with and without the index")
-    hold(x, y, got["nn_dist"], *got["nn_argmin"], *want["nn_argmin"])
-    if set(taken) != {8, 4, 2, 1}:
-        raise AssertionError(f"the checks took the instantiations {sorted(taken)}, "
-                             "not all of 8, 4, 2 and 1 query points a thread")
-    for e in entries:
+    hold("the timed launch", x, y, got["nn_dist"], *got["nn_argmin"], *want["nn_argmin"])
+    del want
+    if not torch.equal(got["nn_dist"], chamfer_cuda.nn_dist(x, y)):
+        raise AssertionError("nn_dist gives other bits on a second launch (timed shape)")
+
+    # the work each pass did on the timed clouds and on clouds where no
+    # group can be culled (the reconstruction path's own: nn_work after it)
+    work, dist2 = nn_work(entries, "uniform", x, y)
+    if not torch.equal(dist2, got["nn_dist"]):
+        raise AssertionError("the counting instantiation's distances differ from nn_dist's")
+    qa, pa = adversarial(g, b, n, dev)
+    nn_work(entries, "adversarial", qa, pa)
+    # no group can be culled: K2 against the brute-force kernel's time
+    sub = slice(0, 8)
+    hold("adversarial, 8 clouds", qa[sub], pa[sub], chamfer_cuda.nn_dist(qa[sub], pa[sub]),
+         *chamfer_cuda.nn_argmin(qa[sub], pa[sub]),
+         *chamfer_cuda.nn_reference(qa[sub], pa[sub], need_idx=True))
+    adv_ms = cuda_ms(lambda: chamfer_cuda.nn_dist(qa, pa), iters=5)
+    adv_argmin_ms = cuda_ms(lambda: chamfer_cuda.nn_argmin(qa, pa), iters=3)
+    layout_ms = cuda_ms(lambda: chamfer_cuda.nn_layout(x, y), iters=5)
+    lay = chamfer_cuda.nn_layout(x, y)
+    kernel_ms = [cuda_ms(lambda: chamfer_cuda.nn_on_layout(lay, need_idx), iters=5)
+                 for need_idx in (False, True)]
+    del lay
+    print(f"nn_dist adversarial ({b},{n})^2: {adv_ms:.3f} ms (held at {NN_ADVERSARIAL_MS:.3f} "
+          f"ms, 1.2x the brute-force kernel's 34.46 ms), nn_argmin {adv_argmin_ms:.3f} ms; "
+          f"the layout step alone (Morton order, gathers, boxes) {layout_ms:.3f} ms; the "
+          f"kernels alone on the timed clouds' layout {kernel_ms[0]:.3f} / {kernel_ms[1]:.3f} ms")
+
+    for e, k_ms in zip(entries, kernel_ms):
+        p1, p2, total = work[e["name"]]
+        e["bound_ms"], e["bound_by"] = nn_bound(b, n, n, p1 + p2)
         e["max_abs_err"] = err[e["name"]]
-    entries[1]["index_mismatches"] = f"{mismatches} of {compared}"
-    print("nn instantiations checked:", json.dumps({str(k): v for k, v in taken.items()}))
+        e["layout_ms"], e["kernel_only_ms"] = layout_ms, k_ms
+        print(f"{e['name']} ({b},{n})^2: kernel {e['ms']:.3f} ms (layout included), plain "
+              f"{e['plain_ms']:.3f} ms, bound on the distances formed {e['bound_ms']:.3f} ms "
+              f"({e['bound_by']}; {(p1 + p2) / total:.4%} of brute force), brute-force "
+              f"bound {brute_ms:.3f} ms")
+    entries[0]["adversarial_ms"] = adv_ms
+    entries[1]["adversarial_ms"] = adv_argmin_ms
+    entries[1]["index_mismatches"] = f"{totals['mismatches']} of {totals['compared']}"
+    entries[1]["distances_not_bit_equal_to_plain"] = totals["not_bit_equal"]
     entries[1]["note"] = ("no ported CLI path runs nn_argmin yet (its caller is the "
                           "demo's chamfer inversion); launches are those of the "
                           "reconstruction path, 0")
+    if adv_ms > NN_ADVERSARIAL_MS:
+        raise AssertionError(f"nn_dist on clouds no group of which can be culled takes "
+                             f"{adv_ms:.3f} ms, over {NN_ADVERSARIAL_MS:.3f} ms")
     return entries
 
 
@@ -621,21 +722,16 @@ def check_emd_pair(dev) -> dict:
         torch.cuda.synchronize()
         max_abs = max(max_abs, hold_pair(name, got, emd_cuda.emd_pair_reference(x, y)))
 
-    def weighted_grads(fn, x, y):
-        wts = torch.tensor([0.7, -1.3], dtype=x.dtype, device=dev)
-        tx, ty = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
-        (fn(tx, ty) * wts).sum().backward()
-        return tx.grad, ty.grad
-
+    wts = torch.tensor([0.7, -1.3], device=dev)
     x = (torch.rand((2, 128, 3), generator=g) * 2 - 1).to(dev)
     y = (torch.rand((2, 128, 3), generator=g) * 2 - 1).to(dev)
-    for part, gt, wt in zip(("grad x", "grad y"), weighted_grads(earth_mover_distance, x, y),
-                            weighted_grads(earth_mover_distance_dense, x, y)):
+    for part, gt, wt in zip(("grad x", "grad y"), weighted_grads(earth_mover_distance, x, y, wts),
+                            weighted_grads(earth_mover_distance_dense, x, y, wts)):
         hold_emd(f"earth_mover_distance {part} (2,128)^2", gt, wt, EMD_GRAD_ATOL, 0.0)
     x, y = gaussian(g, 2, NUM_POINTS, dev), gaussian(g, 2, NUM_POINTS, dev)
-    kernel = weighted_grads(earth_mover_distance, x, y)
-    plain = weighted_grads(earth_mover_distance_dense, x, y)
-    exact = weighted_grads(earth_mover_distance_dense, x.double(), y.double())
+    kernel = weighted_grads(earth_mover_distance, x, y, wts)
+    plain = weighted_grads(earth_mover_distance_dense, x, y, wts)
+    exact = weighted_grads(earth_mover_distance_dense, x.double(), y.double(), wts.double())
     for i, part in enumerate(("grad x", "grad y")):
         rel = lambda a: float((a.double() - exact[i]).norm() / exact[i].norm())  # noqa: E731
         worst = lambda a: float((a.double() - exact[i]).abs().max())  # noqa: E731
@@ -674,6 +770,110 @@ def check_emd_pair(dev) -> dict:
             "note": "no ported CLI path runs emd_pair (its callers are the public "
                     "earth_mover_distance / compute_emd), launches are those of the "
                     "EMD path, 0"}
+
+
+def weighted_grads(fn, x, y, wts):
+    """Gradients of sum_b wts[b] * fn(x, y)[b] for both clouds."""
+    tx, ty = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+    (fn(tx, ty) * wts).sum().backward()
+    return tx.grad, ty.grad
+
+
+def check_emd_device_path(dev) -> dict:
+    """K4 and K5 above 3072 points a cloud, where the auction state sits in
+    a device-memory workspace: K4 against ``emd_block_reference`` at
+    (2,4096)^2 and a mixed (1,5000)x(2,3500), bit for bit across two
+    launches; K5 against ``emd_pair_reference`` at (2,4096)^2 and a ragged
+    (2,3100)x(2,4500); one timed (1,16384)^2 full-scan K5 launch against a
+    float64 auction; ``earth_mover_distance``'s gradient at (1,4096)^2
+    against float64; K4 timed on an (8,33) block of 4096-point clouds.
+    Returns each kernel's device-path numbers for the ``kernels`` line."""
+    g = torch.Generator().manual_seed(9)
+    out = {"emd_block": {}, "emd_pair": {}}
+    max_abs, block_abs = 0.0, 0.0
+    big = EMD_LARGE_POINTS
+    for name, (r, n), (c, m) in ((f"(2,{big})^2", (2, big), (2, big)),
+                                 ("(1,5000)x(2,3500)", (1, 5000), (2, 3500))):
+        rows, cols = gaussian(g, r, n, dev), gaussian(g, c, m, dev)
+        got = emd_cuda.emd_block(rows, cols)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"emd_block {name}: non-finite costs")
+        block_abs = max(block_abs, hold_emd(f"emd_block device path {name}", got,
+                                            emd_cuda.emd_block_reference(rows, cols),
+                                            EMD_ATOL, EMD_RTOL))
+        if not torch.equal(got, emd_cuda.emd_block(rows, cols)):
+            raise AssertionError(f"emd_block device path {name}: other bits on a second launch")
+    print("emd_block device path: two launches equal bit for bit at both shapes")
+    for name, b, n, m in ((f"(2,{big})^2", 2, big, big), ("(2,3100)x(2,4500)", 2, 3100, 4500)):
+        x, y = gaussian(g, b, n, dev), gaussian(g, b, m, dev)
+        got = emd_cuda.emd_pair(x, y)
+        torch.cuda.synchronize()
+        max_abs = max(max_abs, hold_pair(f"device path {name}", got,
+                                         emd_cuda.emd_pair_reference(x, y)))
+    out["emd_pair"]["max_abs_err"] = max_abs
+
+    x, y = gaussian(g, 1, big, dev), gaussian(g, 1, big, dev)
+    wts = torch.tensor([0.7], device=dev)
+    kernel = weighted_grads(earth_mover_distance, x, y, wts)
+    exact = weighted_grads(earth_mover_distance_dense, x.double(), y.double(), wts.double())
+    for part, k, e in zip(("grad x", "grad y"), kernel, exact):
+        rel = float((k.double() - e).norm() / e.norm())
+        print(f"earth_mover_distance {part} (1,{big})^2 against float64: relative L2 error "
+              f"{rel:.3e} (held at {EMD_GRAD_REL_L2})")
+        if rel > EMD_GRAD_REL_L2:
+            raise AssertionError(f"earth_mover_distance {part} at (1,{big})^2: relative L2 "
+                                 f"error {rel} against float64")
+
+    # one full scan a cloud: a single block, so a single SM, runs the pair
+    x, y = clouds(g, 1, SCAN_POINTS, dev), clouds(g, 1, SCAN_POINTS, dev)
+    got = {}
+    ms = cuda_ms(lambda: got.__setitem__(0, emd_cuda.emd_pair(x, y)), iters=1)
+    plain = emd_cuda.emd_pair_reference(x, y)
+    xd, yd = x.double(), y.double()
+    match = emd_cuda.approx_match(xd, yd)
+    exact = (emd_cuda.match_cost(xd, yd, match), match.sum(2), match.sum(1),
+             torch.bmm(match, yd), torch.bmm(match.transpose(1, 2), xd))
+    del match
+    rel_cost = lambda c: float((c.double() - exact[0]).abs().max() / exact[0].abs().max())  # noqa: E731
+    print(f"emd_pair (1,{SCAN_POINTS})^2 cost against float64: relative error "
+          f"{rel_cost(got[0][0]):.3e} (the float32 plain version's {rel_cost(plain[0]):.3e}); "
+          f"against the float32 plain version {float((got[0][0] - plain[0]).abs().max() / plain[0].abs().max()):.3e}")
+    for part, k, p32, e in zip("RCVU", got[0][1:], plain[1:], exact[1:]):
+        print(f"emd_pair (1,{SCAN_POINTS})^2 {part} against float64: relative L2 error "
+              f"{float(pair_rel_l2(k, e).max()):.3e} (the float32 plain version's "
+              f"{float(pair_rel_l2(p32, e).max()):.3e}); against the float32 plain version "
+              f"{float(pair_rel_l2(k, p32).max()):.3e}")
+    cost_rel = rel_cost(got[0][0])
+    if cost_rel > EMD_RTOL:
+        raise AssertionError(f"emd_pair (1,{SCAN_POINTS})^2 cost: {cost_rel} from float64")
+    for part, k, e in zip("RCVU", got[0][1:], exact[1:]):
+        rel = float(pair_rel_l2(k, e).max())
+        if rel > PAIR_REL_L2:
+            raise AssertionError(f"emd_pair (1,{SCAN_POINTS})^2 {part}: relative L2 error "
+                                 f"{rel} against float64")
+    del exact, xd, yd, plain
+    torch.cuda.empty_cache()
+    bound_ms, bound_by = emd_bound(1, SCAN_POINTS, SCAN_POINTS,
+                                   4 * (x.numel() + y.numel() + 1 + 8 * SCAN_POINTS), True)
+    out["emd_pair"].update({"shape": f"(1,{SCAN_POINTS})^2 launch", "ms": ms,
+                            "bound_ms": bound_ms, "bound_by": bound_by,
+                            "workspace_pairs_a_launch": emd_cuda.pairs_per_launch(
+                                SCAN_POINTS, SCAN_POINTS, True, 10 ** 9)})
+    print(f"emd_pair device path (1,{SCAN_POINTS})^2: kernel {ms:.3f} ms (one block, one SM), "
+          f"bound {bound_ms:.3f} ms ({bound_by}) on the whole card")
+
+    r, c, n = 8, 33, big
+    rows, cols = gaussian(g, r, n, dev), gaussian(g, c, n, dev)
+    ms = cuda_ms(lambda: emd_cuda.emd_block(rows, cols), iters=2)
+    bound_ms, bound_by = emd_bound(r * c, n, n, 4 * (rows.numel() + cols.numel() + r * c), False)
+    out["emd_block"] = {"shape": f"({r},{n})x({c},{n}) block", "ms": ms,
+                        "us_per_pair": ms / (r * c) * 1e3, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "max_abs_err": block_abs,
+                        "workspace_pairs_a_launch": emd_cuda.pairs_per_launch(n, n, False, 10 ** 9)}
+    print(f"emd_block device path ({r},{n})x({c},{n}): kernel {ms:.3f} ms "
+          f"({ms / (r * c) * 1e3:.1f} us a pair), bound {bound_ms:.3f} ms ({bound_by})")
+    return out
 
 
 def prepare(work: str, num_test: int) -> dict:
@@ -783,6 +983,31 @@ def emd_path(work: str, run: dict, num_test: int) -> dict:
     return launches
 
 
+def emd_large_path(work: str, run: dict) -> dict:
+    """evaluate_synthesis --metrics cd,emd at 4096 points a cloud on 32
+    scans: every EMD pair takes the kernels' device-memory path.  Checks
+    every key and that emd_block ran; returns the run's launch counts."""
+    t = {}
+    args = synthesis_args(work, run, EMD_LARGE_NUM_TEST) + ["--metrics", "cd,emd"]
+    args[args.index("--num-points") + 1] = str(EMD_LARGE_POINTS)
+    reset_launches()
+    t0 = time.perf_counter()
+    s = es.main(args, timings=t)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    check_scores("emd run at 4096 points", s, EXPECTED_KEYS | EMD_KEYS)
+    if s["#points"] != EMD_LARGE_POINTS or launches["emd_block"] <= 0 \
+            or not emd_cuda.uses_device_memory(EMD_LARGE_POINTS, EMD_LARGE_POINTS):
+        raise AssertionError(f"the 4096-point EMD path: #points {s['#points']}, "
+                             f"launches {launches}")
+    print(f"scores (generated vs test, cd,emd, {EMD_LARGE_POINTS} points):",
+          json.dumps(s, sort_keys=True))
+    print("stages:", json.dumps({"emd_large_run_s": wall, "num_test": EMD_LARGE_NUM_TEST,
+                                 "num_points": EMD_LARGE_POINTS, "launches": launches,
+                                 "generated": t}))
+    return launches
+
+
 def calibration_path(work: str, run: dict, num_test: int, dev) -> None:
     """evaluate_synthesis --calibrate-drop-rate (CD only) on ``num_test``
     generated scans: the calibrated drop rate is within CALIB_ATOL of the
@@ -822,19 +1047,29 @@ def calibration_path(work: str, run: dict, num_test: int, dev) -> None:
         raise AssertionError(f"calibration reached {achieved}, not {target}")
 
 
-def reconstruction_path(work: str, run: dict, num_step: int) -> dict:
+def reconstruction_path(work: str, run: dict, num_step: int):
     """evaluate_reconstruction on one batch of 512 test scans; returns the
-    nn kernels' launches of the run."""
+    nn kernels' launches of the run and the clouds its Chamfer score gave
+    K2 (recorded on the way to the kernel, for ``nn_work``)."""
     out_dir = os.path.join(work, "rec")
     args = ["--model-path", run["pth"], "--config-path", run["cfg_path"],
             "--save-dir-path", out_dir, "--batch-size", str(REC_BATCH),
             "--num-step", str(num_step), "--max-batches", "1", "--device", "cuda"]
-    stats = {}
+    stats, seen = {}, []
+
+    def recording_nn_dist(x, y):
+        seen.append((x, y))
+        return chamfer_cuda.nn_dist(x, y)
+
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    t0 = time.perf_counter()
-    er.main(args, stats=stats)
-    wall = time.perf_counter() - t0
+    chamfer.nn_dist = recording_nn_dist
+    try:
+        t0 = time.perf_counter()
+        er.main(args, stats=stats)
+        wall = time.perf_counter() - t0
+    finally:
+        chamfer.nn_dist = chamfer_cuda.nn_dist
     launches = {"nn_dist": chamfer_cuda.nn_dist.launches,
                 "nn_argmin": chamfer_cuda.nn_argmin.launches}
 
@@ -864,7 +1099,7 @@ def reconstruction_path(work: str, run: dict, num_step: int) -> dict:
         "loss_z0": stats["loss_z0"], "loss_zstar": stats["loss_zstar"],
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "num_step": num_step, "batch": REC_BATCH}))
-    return launches
+    return launches, seen
 
 
 def profile_inversion(dev, run: dict, steps: int = 10) -> None:
@@ -1043,27 +1278,36 @@ def main(argv=None) -> int:
     kernels.build()
     print(f"kernel build: {time.perf_counter() - t:.1f} s")
     check_ptxas("cd_block", 2)  # the one-pass and the two-pass instantiation
-    check_ptxas("emd", 2)
+    check_ptxas("emd", 4)  # K4 and K5, each on both paths
+    check_ptxas("nn", 12)  # 4/2/1 query points a thread, K2 and K3, counting or not
     print("cd_block SASS, inner loop:", json.dumps(cd_sass_per_distance()))
 
     entries = [check_cd_block(dev)] + check_nn(dev)
     check_chamfer_grad(dev)
     entries += [check_emd_block(dev), check_emd_pair(dev)]
+    device_path = check_emd_device_path(dev)
+    entries[3]["device_path"], entries[4]["device_path"] = (device_path["emd_block"],
+                                                            device_path["emd_pair"])
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(REPO, "build"))
     try:
         run = prepare(work, args.num_test)
         cd_launches = synthesis_path(work, run, args.num_test)
         emd_launches = emd_path(work, run, args.emd_num_test)
+        emd_large_launches = emd_large_path(work, run)
         calibration_path(work, run, args.emd_num_test, dev)
-        nn_launches = reconstruction_path(work, run, args.num_step)
+        nn_launches, rec_clouds = reconstruction_path(work, run, args.num_step)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    for i, (x, y) in enumerate(rec_clouds):
+        nn_work(entries[1:3], f"reconstruction_{i}", x, y)
+    del rec_clouds
     entries[0]["launches"] = cd_launches
     entries[1]["launches"] = nn_launches["nn_dist"]
     entries[2]["launches"] = nn_launches["nn_argmin"]
     entries[3]["launches"] = emd_launches["emd_block"]
     entries[4]["launches"] = emd_launches["emd_pair"]
+    entries[3]["device_path"]["launches"] = emd_large_launches["emd_block"]
     print(f"cd_block launches in one {args.num_test}-scan run: "
           f"{cd_launches // 2}; in one 5000-scan run: {protocol_launches()}")
     profile_inversion(dev, run)

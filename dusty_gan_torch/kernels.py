@@ -27,21 +27,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # C signatures of each library: name -> {function: (restype, argtypes)}
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "cd_block": {
         "cd_block_launch": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
         "cd_block_error_string": (ctypes.c_char_p, [_I]),
     },
     "nn": {
-        "nn_dist_launch": (_I, [_P, _P, _P, _I, _I, _I, _P]),
-        "nn_argmin_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
+        "nn_dist_launch": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+        "nn_argmin_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+        "nn_count_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
         "nn_points_per_thread": (_I, [_I, _I]),
         "nn_error_string": (ctypes.c_char_p, [_I]),
     },
     "emd": {
-        "emd_block_launch": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
-        "emd_pair_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+        "emd_block_launch": (_I, [_P, _P, _P, _I, _I, _I, _I, _P, _LL, _P]),
+        "emd_pair_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _LL, _P]),
         "emd_error_string": (ctypes.c_char_p, [_I]),
     },
 }

@@ -15,7 +15,10 @@ The plain versions run the dense annealed auction of
 ``dusty_gan_tpu/metrics/emd.py`` (``approx_match``, ``match_cost``) on
 materialised (pairs, N, M) tensors, as many pairs at once as fit an element
 budget.  CPU tensors go through them; CUDA tensors go through the kernel or
-the call raises.  The kernels take any N and M up to ``MAX_POINTS``.
+the call raises.  The kernels take any N and M: up to ``SHARED_MAX_POINTS``
+a cloud the auction state sits in shared memory; above it the wrapper
+passes a workspace in device memory and launches in chunks of pairs
+(``pairs_per_launch``).
 """
 
 from __future__ import annotations
@@ -25,9 +28,16 @@ import torch
 from dusty_gan_torch import kernels
 from dusty_gan_torch.metrics.chamfer_cuda import _sq_dist
 
-# the largest N and M the kernels take (csrc/emd.cu kMaxPoints: K5's state
-# in shared memory; the launch functions refuse larger shapes as well)
-MAX_POINTS = 3072
+# the largest N and M of the shared-memory path (csrc/emd.cu
+# kSharedMaxPoints: K5's state fits one block's shared memory); larger clouds
+# keep the state in a device-memory workspace
+SHARED_MAX_POINTS = 3072
+# the device-memory path's workspace, at most this many bytes a launch:
+# 8192 pairs of 4096-point clouds would need 2.4 GB for K5 at once; 1 GiB
+# still holds 900 pairs of 16,384-point clouds (K5), nearly 7 waves of one
+# block an SM on an H100.  A single pair above the cap gets a launch of
+# its own.
+WORKSPACE_CAP_BYTES = 1 << 30
 # CUDA's limit on a one-dimensional grid: one block per pair
 MAX_PAIRS = 2 ** 31 - 1
 # (pairs, N, M) elements materialised at once by the plain versions
@@ -129,12 +139,29 @@ def emd_pair_reference(x: torch.Tensor, y: torch.Tensor):
     return tuple(torch.cat(t) for t in zip(*parts))
 
 
-def _lib(a: torch.Tensor, b: torch.Tensor, pairs: int, n: int, m: int):
+def uses_device_memory(n: int, m: int) -> bool:
+    """Whether N- and M-point clouds take the kernels' device-memory path."""
+    return max(n, m) > SHARED_MAX_POINTS
+
+
+def state_floats(n: int, m: int, residues: bool) -> int:
+    """Floats of one pair's auction state in the workspace (csrc/emd.cu
+    state_floats): the clouds as float4, remain_l and remain_r, and E
+    (K4) or R, V, C and U (K5), rounded up to whole float4s."""
+    f = 9 * (n + m) if residues else 6 * n + 5 * m
+    return (f + 3) // 4 * 4
+
+
+def pairs_per_launch(n: int, m: int, residues: bool, pairs: int) -> int:
+    """Pairs of one launch: all of them on the shared-memory path, else as
+    many as keep the workspace within WORKSPACE_CAP_BYTES (at least one)."""
+    if not uses_device_memory(n, m):
+        return pairs
+    return max(1, min(pairs, WORKSPACE_CAP_BYTES // (4 * state_floats(n, m, residues))))
+
+
+def _lib(a: torch.Tensor, b: torch.Tensor, pairs: int):
     """The kernels' library, after the checks of what they take."""
-    if max(n, m) > MAX_POINTS:
-        raise ValueError(f"EMD kernels take at most {MAX_POINTS} points a cloud "
-                         f"(the auction state must fit one block's shared "
-                         f"memory), got N={n}, M={m}")
     if pairs > MAX_PAIRS:
         raise ValueError(f"EMD kernels take at most {MAX_PAIRS} pairs a launch "
                          f"(one block each), got {pairs}")
@@ -145,6 +172,16 @@ def _lib(a: torch.Tensor, b: torch.Tensor, pairs: int, n: int, m: int):
     return kernels.load("emd")
 
 
+def _workspace(device, n: int, m: int, residues: bool, pairs: int):
+    """(tensor, pointer, floats) of a workspace for ``pairs`` pairs on the
+    device-memory path; (None, 0, 0) on the shared-memory path."""
+    if not uses_device_memory(n, m):
+        return None, 0, 0
+    floats = pairs * state_floats(n, m, residues)
+    work = torch.empty(floats, dtype=torch.float32, device=device)
+    return work, work.data_ptr(), floats
+
+
 def _raise_on(lib, err: int, name: str):
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
@@ -153,41 +190,58 @@ def _raise_on(lib, err: int, name: str):
 
 def emd_block(rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
     """(R, N, 3), (C, M, 3) float32 -> (R, C) float32 auction costs
-    (kernel K4)."""
+    (kernel K4).  On the device-memory path the block is launched in tiles
+    of rows and columns of at most ``pairs_per_launch`` pairs."""
     _check(rows, cols, paired=False)
     if rows.device.type == "cpu":
         return emd_block_reference(rows, cols)
     r, n, _ = rows.shape
     c, m, _ = cols.shape
-    lib = _lib(rows, cols, r * c, n, m)
+    chunk = pairs_per_launch(n, m, False, r * c)
+    lib = _lib(rows, cols, chunk)
+    tile_c = min(c, chunk)
+    tile_r = max(1, chunk // tile_c)
     out = torch.empty((r, c), dtype=torch.float32, device=rows.device)
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream(rows.device).cuda_stream
-        err = lib.emd_block_launch(rows.data_ptr(), cols.data_ptr(), out.data_ptr(),
-                                   r, c, n, m, stream)
-    _raise_on(lib, err, "emd_block")
-    emd_block.launches += 1
+        work, ptr, floats = _workspace(rows.device, n, m, False, tile_r * tile_c)
+        for r0 in range(0, r, tile_r):
+            for c0 in range(0, c, tile_c):
+                rs, cs = min(tile_r, r - r0), min(tile_c, c - c0)
+                tile = out if (rs, cs) == (r, c) else torch.empty(
+                    (rs, cs), dtype=torch.float32, device=rows.device)
+                err = lib.emd_block_launch(rows[r0].data_ptr(), cols[c0].data_ptr(),
+                                           tile.data_ptr(), rs, cs, n, m, ptr, floats, stream)
+                _raise_on(lib, err, "emd_block")
+                emd_block.launches += 1
+                if tile is not out:
+                    out[r0:r0 + rs, c0:c0 + cs] = tile
     return out
 
 
 def emd_pair(x: torch.Tensor, y: torch.Tensor):
     """(B, N, 3), (B, M, 3) float32 -> (cost (B,), R (B, N), C (B, M),
-    V (B, N, 3), U (B, M, 3)) (kernel K5)."""
+    V (B, N, 3), U (B, M, 3)) (kernel K5).  On the device-memory path the
+    pairs are launched in chunks of ``pairs_per_launch``."""
     _check(x, y, paired=True)
     if x.device.type == "cpu":
         return emd_pair_reference(x, y)
     b, n, _ = x.shape
     m = y.shape[1]
-    lib = _lib(x, y, b, n, m)
+    chunk = pairs_per_launch(n, m, True, b)
+    lib = _lib(x, y, chunk)
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=x.device)  # noqa: E731
     cost, r, c, v, u = new(b), new(b, n), new(b, m), new(b, n, 3), new(b, m, 3)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.emd_pair_launch(x.data_ptr(), y.data_ptr(), cost.data_ptr(),
-                                  r.data_ptr(), c.data_ptr(), v.data_ptr(),
-                                  u.data_ptr(), b, n, m, stream)
-    _raise_on(lib, err, "emd_pair")
-    emd_pair.launches += 1
+        work, ptr, floats = _workspace(x.device, n, m, True, chunk)
+        for b0 in range(0, b, chunk):
+            bs = min(chunk, b - b0)
+            err = lib.emd_pair_launch(x[b0].data_ptr(), y[b0].data_ptr(), cost[b0:].data_ptr(),
+                                      r[b0].data_ptr(), c[b0].data_ptr(), v[b0].data_ptr(),
+                                      u[b0].data_ptr(), bs, n, m, ptr, floats, stream)
+            _raise_on(lib, err, "emd_pair")
+            emd_pair.launches += 1
     return cost, r, c, v, u
 
 

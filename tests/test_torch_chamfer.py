@@ -137,7 +137,8 @@ def test_wrappers_reject_bad_inputs(fn, bad):
 
 def test_nn_library_is_declared():
     assert set(kernels.SIGNATURES["nn"]) == {"nn_dist_launch", "nn_argmin_launch",
-                                            "nn_points_per_thread", "nn_error_string"}
+                                            "nn_count_launch", "nn_points_per_thread",
+                                            "nn_error_string"}
     assert kernels.library_path("nn").name.startswith("libnn-")
     src = (kernels.CSRC / "nn.cu").read_text()
     for fn in kernels.SIGNATURES["nn"]:

@@ -15,6 +15,12 @@
 * The auction is permutation-equivariant: the plain versions on clouds in
   another point order give the same costs (rtol 1e-5, only the float32
   sum order differs) and the residues permuted alike.
+* Above the kernels' shared-memory path (3072 points a cloud) the plain
+  versions against the JAX dense path: costs rtol 1e-4, residues per pair
+  in relative L2 at 1e-3 (float32 moves single entries of a match between
+  near columns at that level, as chip_smoke.py holds them on the card).
+* The wrappers' choice between the shared-memory and the device-memory
+  path and the size of the device-memory path's chunks, as pure functions.
 * The build helpers of ``kernels.py`` that ``chip_smoke.py`` reads ptxas's
   report through.
 """
@@ -27,6 +33,7 @@ import torch
 
 from dusty_gan_tpu.metrics import emd as jemd
 from dusty_gan_tpu.metrics.cov_mmd_1nna import _pairwise_distance as jax_pairwise
+from dusty_gan_tpu.metrics.cov_mmd_1nna import _pairwise_emd_rowwise as jax_pairwise_emd_dense
 from dusty_gan_tpu.metrics.cov_mmd_1nna import compute_cov_mmd_1nna as jax_cov
 from dusty_gan_tpu.metrics.emd_pallas import emd_block_pallas, emd_pair_pallas
 
@@ -35,8 +42,10 @@ from dusty_gan_torch.metrics import emd_cuda
 from dusty_gan_torch.metrics.cov_mmd_1nna import compute_cov_mmd_1nna, pairwise_emd
 from dusty_gan_torch.metrics.emd import (approx_match, compute_emd, earth_mover_distance,
                                          earth_mover_distance_dense, match_cost)
-from dusty_gan_torch.metrics.emd_cuda import (MAX_POINTS, emd_block, emd_block_reference,
-                                              emd_pair, emd_pair_reference)
+from dusty_gan_torch.metrics.emd_cuda import (SHARED_MAX_POINTS, WORKSPACE_CAP_BYTES,
+                                              emd_block, emd_block_reference, emd_pair,
+                                              emd_pair_reference, pairs_per_launch,
+                                              state_floats, uses_device_memory)
 
 COUNT_KEYS = tuple(f"{k}-{m}" for m in ("cd", "emd") for k in (
     "cov", "1-nn-tp", "1-nn-fp", "1-nn-fn", "1-nn-tn", "1-nn-accuracy"))
@@ -193,14 +202,83 @@ def test_pair_needs_matched_batches():
 
 @pytest.mark.parametrize("fn", [emd_block, emd_pair])
 def test_off_cpu_shape_limit_raises_before_launch(fn):
-    """Clouds off the CPU above the kernels' shared-memory limit raise and
-    name it; within it, a device that is not CUDA raises too."""
-    big = torch.empty((1, MAX_POINTS + 1, 3), device="meta")
+    """Off the CPU, clouds of any size reach the kernels (there is no
+    point limit since the device-memory path), so a device that is not
+    CUDA raises for both paths' sizes; more pairs than one launch takes
+    raise before any launch, on any device."""
+    big = torch.empty((1, SHARED_MAX_POINTS + 1, 3), device="meta")
     ok = torch.empty((1, 64, 3), device="meta")
-    with pytest.raises(ValueError, match=str(MAX_POINTS)):
-        fn(big, ok)
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        fn(ok, ok)
+    for a, b in ((big, ok), (ok, big), (ok, ok)):
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            fn(a, b)
+    many = torch.empty((46341, 1, 3), device="meta")
+    if fn is emd_block:  # 46341^2 pairs
+        with pytest.raises(ValueError, match="pairs"):
+            fn(many, many)
+
+
+# (N, M, residues, pairs) -> device-memory path?, pairs a launch
+PATH_CASES = [
+    ((2048, 2048, False, 8192), (False, 8192)),   # the protocol's block
+    ((3072, 3072, True, 512), (False, 512)),      # the shared path's largest
+    ((3073, 100, False, 40), (True, 40)),         # one cloud above it
+    ((100, 3073, True, 40), (True, 40)),
+    ((4096, 4096, True, 8192), (True, 3640)),     # 2.4 GB at once, chunked
+    ((4096, 4096, False, 8192), (True, 5957)),
+    ((16384, 16384, True, 10_000), (True, 910)),
+    ((30_000_000, 30_000_000, True, 3), (True, 1)),  # one pair above the cap
+]
+
+
+@pytest.mark.parametrize("shape,want", PATH_CASES)
+def test_path_choice_and_workspace_chunks(shape, want):
+    n, m, residues, pairs = shape
+    device_memory, chunk = want
+    assert uses_device_memory(n, m) == device_memory
+    assert pairs_per_launch(n, m, residues, pairs) == chunk
+    if device_memory and chunk > 1:
+        assert chunk * 4 * state_floats(n, m, residues) <= WORKSPACE_CAP_BYTES
+        assert (chunk + 1) * 4 * state_floats(n, m, residues) > WORKSPACE_CAP_BYTES \
+            or chunk == pairs
+
+
+def test_state_floats_match_the_kernels_state():
+    """csrc/emd.cu's State: two float4 clouds, remain_l and remain_r, and E
+    (K4) or R, V0-2 (N) and C, U0-2 (M) (K5), padded to whole float4s;
+    the launch functions refuse a smaller workspace."""
+    assert state_floats(4096, 4096, True) == 18 * 4096
+    assert state_floats(4097, 4096, False) == (6 * 4097 + 5 * 4096 + 3) // 4 * 4
+    assert all(state_floats(n, m, r) % 4 == 0 for n in (1, 2, 3) for m in (1, 5) for r in (0, 1))
+    src = (kernels.CSRC / "emd.cu").read_text()
+    assert "(residues ? 9LL : 6LL) * N + (residues ? 9LL : 5LL) * M" in src
+    assert f"kSharedMaxPoints = {SHARED_MAX_POINTS};" in src
+    assert "work_floats / pairs >= state_floats(N, M, residues)" in src
+
+
+def test_pair_reference_above_shared_limit_matches_jax():
+    """(1, 3200) x (1, 3100): the dense auction of the kernels' device-memory
+    path against JAX's approx_match and match_cost."""
+    a, b = _clouds(30, 1, 3200), _clouds(31, 1, 3100)
+    ja, jb = jnp.asarray(a), jnp.asarray(b)
+    match = jemd.approx_match(ja, jb)
+    want = (jemd.match_cost(ja, jb, match), match.sum(2), match.sum(1),
+            jnp.einsum("bnm,bmc->bnc", match, jb), jnp.einsum("bnm,bnc->bmc", match, ja))
+    got = emd_pair_reference(_t(a), _t(b))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=1e-4)
+    for name, g, w in zip("RCVU", got[1:], want[1:]):
+        w = np.asarray(w, np.float64)
+        rel = np.linalg.norm(g.numpy() - w) / np.linalg.norm(w)
+        assert rel <= 1e-3, (name, rel)
+
+
+def test_block_reference_above_shared_limit_matches_jax():
+    """A (2, 3200)^2 block of per-point costs against the JAX package's
+    dense row loop, _pairwise_emd_rowwise, which scores any shape its
+    Pallas kernels do not take."""
+    a, b = _clouds(32, 2, 3200), _clouds(33, 2, 3200)
+    want = jax_pairwise_emd_dense(jnp.asarray(a), jnp.asarray(b), 2, False)
+    got = emd_block_reference(_t(a), _t(b)) / 3200.0
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4)
 
 
 def test_zero_padding_clouds_stay_finite():
