@@ -37,14 +37,28 @@
    Chamfer distance on the full 16,384-point clouds; checks the CSV, that
    the masked loss fell, counts the distances K2 formed on the path's own
    clouds, and profiles a few inversion steps.
+5. Drives the training path, ``dusty_gan_torch.cli.train``, for the same
+   full-width DUSty-II (and its discriminator, ch_base 64, ch_max 512) at
+   batch 32 under bf16 with R1 and DiffAugment, on the tree's train split
+   with the val split (sequence 08, 256 scans) scored once in training on
+   K1: run 1 logs stats, validates and checkpoints; run 2 resumes from run
+   1's mid-run checkpoint and is held to run 1 (its first step's losses,
+   its final G_ema); K1 is held against its plain version on the blocks the
+   validation gave it.  Then it times the train step (CUDA events, scans/s,
+   peak memory, FLOP against the bf16 rate, device idle share and top
+   device ops from torch.profiler), holds one float32 step at a small width
+   on the card against the CPU, prints one full-width step's bf16 against
+   float32 scalars, and checks that D's bf16 logit sees a far-field-only
+   change.
    Each path's kernel launch counts are set to 0 just before it and read
    just after.
-5. Checks the scores (every key, finite) and, on small inputs, the card's
+6. Checks the scores (every key, finite) and, on small inputs, the card's
    scores, pairwise EMD matrices, generator output and inversion against
    the CPU, and one
    inversion step's bf16 gradient for z against float32 on the card.
-6. Prints a JSON line of per-kernel numbers, the card line, and as the
-   last line ``{"ok": true, "device": {...}}``.
+7. Prints a JSON line of per-kernel numbers (K1's with its training-path
+   launches under ``training``), the card line, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, with no result line, when there is no GPU or any phase
 fails.
@@ -67,6 +81,8 @@ import tempfile
 import time
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
@@ -74,20 +90,26 @@ sys.path.insert(0, REPO)
 from dusty_gan_torch import kernels  # noqa: E402
 from dusty_gan_torch.cli import evaluate_reconstruction as er  # noqa: E402
 from dusty_gan_torch.cli import evaluate_synthesis as es  # noqa: E402
+from dusty_gan_torch.cli import train as train_cli  # noqa: E402
 from dusty_gan_torch.config import compose, save_config  # noqa: E402
 from dusty_gan_torch.data.synthetic import build_synthetic_kitti  # noqa: E402
-from dusty_gan_torch.metrics import chamfer, chamfer_cuda, emd_cuda  # noqa: E402
+from dusty_gan_torch.geometry.lidar import Lidar  # noqa: E402
+from dusty_gan_torch.core.dtypes import DEFAULT_POLICY, FP32_POLICY  # noqa: E402
+from dusty_gan_torch.metrics import chamfer, chamfer_cuda, cov_mmd_1nna, emd_cuda  # noqa: E402
 from dusty_gan_torch.metrics.chamfer import chamfer_distance  # noqa: E402
 from dusty_gan_torch.metrics.emd import (  # noqa: E402
     earth_mover_distance, earth_mover_distance_dense)
 from dusty_gan_torch.metrics.cov_mmd_1nna import (  # noqa: E402
     ROW_BLOCK, block_schedule, compute_cov_mmd_1nna, pairwise_emd)
-from dusty_gan_torch.models.factory import define_G  # noqa: E402
+from dusty_gan_torch.models.factory import define_D, define_G  # noqa: E402
 from dusty_gan_torch.models.losses import masked_loss  # noqa: E402
 from dusty_gan_torch.utils.inversion import (  # noqa: E402
     latent_noise_strength, make_inversion_loop, project_sphere)
 from dusty_gan_torch.utils.calibration import (  # noqa: E402
     calibrate_mask_threshold, drop_rate_2d)
+from dusty_gan_torch.train.state import create_train_state  # noqa: E402
+from dusty_gan_torch.train.step import TrainStep, sample_draws  # noqa: E402
+from dusty_gan_torch.train.trainer import Trainer  # noqa: E402
 from dusty_gan_torch.utils.setup import make_eval_generator, make_fixed_noise  # noqa: E402
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3, FP32 outside the
@@ -166,6 +188,27 @@ EMD_GRAD_ATOL, EMD_GRAD_REL_L2 = 2e-4, 2e-3
 # the special function units (SFU)
 EMD_K4_FLOP_PER_DISTANCE_ROUND, EMD_K5_FLOP_PER_DISTANCE_ROUND, EMD_ROUNDS = 16, 26, 9
 EMD_FLOP_PER_POINT = 20  # round 9 and the cost, per point of either cloud
+# training: full-width DUSty-II at batch 32 under bf16, run 1 for
+# TRAIN_ITERS iterations with stats every TRAIN_STATS (so iteration 21, the
+# resumed run's first, is logged by both runs), one validation at
+# TRAIN_TEST on VAL_SCANS val scans (sequence 08, built apart with its own
+# seed), checkpoints every TRAIN_SAVE; run 2 resumes from iteration
+# TRAIN_SAVE
+TRAIN_BATCH, TRAIN_ITERS, TRAIN_STATS, TRAIN_TEST, TRAIN_SAVE = 32, 42, 7, 30, 20
+VAL_SCANS = 256
+# run 2's first step and final G_ema against run 1's: the checkpoint and
+# the draws are the same, so only the card's unordered reductions (cuDNN's
+# backward algorithms, atomics) part them; a wrong resume (another batch,
+# other draws, a lost optimizer or EMA state) moves losses by ~0.1 and
+# G_ema by ~1e-2 in relative L2
+RESUME_SCALAR_RTOL, RESUME_SCALAR_ATOL, RESUME_EMA_REL_L2 = 1e-3, 1e-4, 1e-3
+# one float32 step at a small width, card against CPU, in relative L2 over
+# each model: the Adam moments (the gradients, which float32 sums in other
+# orders on the two devices) within 1e-4; the weights within 1e-3, since
+# Adam's first update lr * g / (|g| + 1e-8) takes either sign where g is
+# below the gradients' float32 noise (a flip moves a weight by 2 lr = 4e-3)
+STEP_MOMENT_REL_L2, STEP_WEIGHT_REL_L2, STEP_SCALAR_RTOL = 1e-4, 1e-3, 1e-4
+
 # SFU exp2 rate: 16 a clock per SM (CUDA programming guide's throughput
 # table, compute capability 9.0), 132 SMs, the 1.98 GHz boost clock that
 # the 67 TFLOP/s FP32 peak assumes
@@ -877,10 +920,12 @@ def check_emd_device_path(dev) -> dict:
 
 
 def prepare(work: str, num_test: int) -> dict:
-    """Synthetic KITTI tree, the full-width DUSty-II config and a
-    reference-format .pth of seeded random weights."""
+    """Synthetic KITTI tree (train 00, test 11, and the val split 08 with a
+    seed of its own, so that 00 and 11 stay as before), the full-width
+    DUSty-II config and a reference-format .pth of seeded random weights."""
     root = build_synthetic_kitti(os.path.join(work, "data"), n_scans_per_seq=num_test,
                                  w0=512, sequences=(0, 11))
+    build_synthetic_kitti(root, n_scans_per_seq=VAL_SCANS, w0=512, sequences=(8,), seed=1)
     cfg = compose(os.path.join(REPO, "configs"),
                   ["model=dusty2_dcgan_eqlr", "dataset=kitti_odometry",
                    f"dataset.root={root}"])
@@ -895,7 +940,7 @@ def prepare(work: str, num_test: int) -> dict:
     pth = os.path.join(work, "checkpoint.pth")
     torch.save({"step": 0, "G": sd, "G_ema": sd}, pth)
     cfg_path = save_config(cfg, os.path.join(work, "run"))
-    return {"G": G, "cfg": cfg, "pth": pth, "cfg_path": cfg_path}
+    return {"G": G, "cfg": cfg, "pth": pth, "cfg_path": cfg_path, "root": root}
 
 
 WRAPPERS = (chamfer_cuda.cd_block, chamfer_cuda.nn_dist, chamfer_cuda.nn_argmin,
@@ -1249,6 +1294,334 @@ def small_input_agreement(dev, G) -> None:
         raise AssertionError(f"full-width G on the card vs the CPU: {err}")
 
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def train_overrides(root: str, run_dir: str, iters: int, *extra) -> list:
+    return ["model=dusty2_dcgan_eqlr", "dataset=kitti_odometry", f"dataset.root={root}",
+            "enable_amp=true", f"solver.batch_size={TRAIN_BATCH}",
+            f"total_iterations={iters}", f"run_dir={run_dir}",
+            f"validate_samples={VAL_SCANS}", f"solver.checkpoint.save_stats={TRAIN_STATS}",
+            f"solver.checkpoint.test={TRAIN_TEST}",
+            f"solver.checkpoint.save_model={TRAIN_SAVE}", "device=cuda", *extra]
+
+
+def logged(run_dir: str) -> dict:
+    """scalars.jsonl as {image step: {tag: value}}."""
+    out = {}
+    with open(os.path.join(run_dir, "scalars.jsonl")) as f:
+        for line in f:
+            row = json.loads(line)
+            step = row.pop("step")
+            row.pop("t")
+            out.setdefault(step, {}).update(row)
+    return out
+
+
+def rel_l2(got: dict, want: dict) -> float:
+    """||got - want|| / ||want|| over every tensor of two state dicts."""
+    num = sum(float((got[k].float() - want[k].float()).pow(2).sum()) for k in want)
+    den = sum(float(want[k].float().pow(2).sum()) for k in want)
+    return math.sqrt(num / den)
+
+
+def training_path(work: str, run: dict) -> dict:
+    """dusty_gan_torch.cli.train at full width (DUSty-II, batch 32, bf16):
+    run 1 with stats, one validation (pairwise CD on K1) and checkpoints;
+    run 2 resumed from run 1's mid-run checkpoint, its first step's scalars
+    and its final G_ema held against run 1's.  Returns the run's K1
+    launches, the blocks K1 was given and the stage times."""
+    root = run["root"]
+    dir1, dir2 = os.path.join(work, "train1"), os.path.join(work, "train2")
+    blocks = []
+
+    def recording_cd_block(rows, cols):
+        blocks.append((rows.clone(), cols.clone()))
+        return chamfer_cuda.cd_block(rows, cols)
+
+    reset_launches()
+    cov_mmd_1nna.cd_block = recording_cd_block
+    t1 = {}
+    try:
+        t0 = time.perf_counter()
+        train_cli.main(train_overrides(root, dir1, TRAIN_ITERS), timings=t1)
+        wall1 = time.perf_counter() - t0
+    finally:
+        cov_mmd_1nna.cd_block = chamfer_cuda.cd_block
+    launches = launch_counts()
+    if launches["cd_block"] <= 0 or not blocks:
+        raise AssertionError(f"the training path's validation launched cd_block "
+                             f"{launches['cd_block']} times")
+
+    mid = os.path.join(dir1, "models", f"checkpoint_{TRAIN_SAVE * TRAIN_BATCH:010d}.pth")
+    t2 = {}
+    t0 = time.perf_counter()
+    train_cli.main(train_overrides(root, dir2, TRAIN_ITERS, f"resume={mid}",
+                                   f"solver.checkpoint.test={10 * TRAIN_ITERS}"), timings=t2)
+    wall2 = time.perf_counter() - t0
+
+    rows1, rows2 = logged(dir1), logged(dir2)
+    first = (TRAIN_SAVE + 1) * TRAIN_BATCH
+    a, b = rows1[first], rows2[first]
+    if set(a) != set(b) or not all(math.isfinite(v) for r in rows1.values() for v in r.values()):
+        raise AssertionError(f"logged scalars: {sorted(a)} vs {sorted(b)}")
+    worst = max(abs(a[k] - b[k]) / (RESUME_SCALAR_ATOL + RESUME_SCALAR_RTOL * abs(a[k]))
+                for k in a if k.startswith("loss/"))
+    scores = {k: v for r in rows1.values() for k, v in r.items() if k.startswith("score/")}
+    if not scores:
+        raise AssertionError("run 1 logged no validation scores")
+    final = f"checkpoint_{TRAIN_ITERS * TRAIN_BATCH:010d}.pth"
+    ema1 = torch.load(os.path.join(dir1, "models", final), weights_only=True)["G_ema"]
+    ema2 = torch.load(os.path.join(dir2, "models", final), weights_only=True)["G_ema"]
+    ema_err = rel_l2(ema2, ema1)
+    print(f"training, resumed at iteration {TRAIN_SAVE}: iteration {TRAIN_SAVE + 1}'s "
+          f"losses within {worst:.3f} of their hold (rtol {RESUME_SCALAR_RTOL}, atol "
+          f"{RESUME_SCALAR_ATOL}); final G_ema relative L2 {ema_err:.3e} (held at "
+          f"{RESUME_EMA_REL_L2})")
+    print("training iteration", TRAIN_SAVE + 1, "run 1:", json.dumps(a, sort_keys=True))
+    print("training iteration", TRAIN_SAVE + 1, "run 2:", json.dumps(b, sort_keys=True))
+    if worst > 1.0 or ema_err > RESUME_EMA_REL_L2:
+        raise AssertionError(f"the resumed run left run 1: losses {worst}x their hold, "
+                             f"G_ema {ema_err}")
+    sps = {step // TRAIN_BATCH: r["perf/scans_per_sec"] for step, r in rows1.items()
+           if "perf/scans_per_sec" in r}
+    print("validation scores (random weights, iteration 30):", json.dumps(scores, sort_keys=True))
+    print("stages:", json.dumps({
+        "train_run1_s": wall1, "train_run1_loop_s": t1["train_s"],
+        "validation_s": t1["validation_s"], "validation_cd_block_launches": launches["cd_block"],
+        "train_run2_s": wall2, "cli_scans_per_sec_by_iteration": sps}))
+    return {"launches": launches["cd_block"], "blocks": blocks,
+            "validation_s": t1["validation_s"]}
+
+
+def hold_training_blocks(blocks: list) -> dict:
+    """K1 on the training path's own (rows, cols) blocks against the plain
+    version; times both on the first block."""
+    max_abs = 0.0
+    for rows, cols in blocks:
+        got = chamfer_cuda.cd_block(rows, cols)
+        want = chamfer_cuda.cd_block_reference(rows, cols)
+        err = (got - want).abs()
+        if bool((err > CD_ATOL + CD_RTOL * want.abs()).any()):
+            raise AssertionError(f"cd_block on a training validation block "
+                                 f"{tuple(rows.shape)}x{tuple(cols.shape)}: max abs err "
+                                 f"{float(err.max())}")
+        max_abs = max(max_abs, float(err.max()))
+    rows, cols = blocks[0]
+    ms = cuda_ms(lambda: chamfer_cuda.cd_block(rows, cols), iters=20)
+    plain_ms = cuda_ms(lambda: chamfer_cuda.cd_block_reference(rows, cols), iters=2)
+    (r, n, _), (c, m, _) = rows.shape, cols.shape
+    shape = f"({r},{n})x({c},{m})"
+    print(f"cd_block on the training path's {len(blocks)} validation blocks: max_abs_err "
+          f"{max_abs:.3e} (rtol {CD_RTOL}, atol {CD_ATOL}); {shape}: kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms")
+    return {"shape": shape, "blocks": len(blocks), "max_abs_err": max_abs, "ms": ms,
+            "plain_ms": plain_ms}
+
+
+def train_cfg(root: str, *extra):
+    cfg = compose(os.path.join(REPO, "configs"),
+                  ["model=dusty2_dcgan_eqlr", "dataset=kitti_odometry", f"dataset.root={root}",
+                   f"solver.batch_size={TRAIN_BATCH}", *extra])
+    return cfg
+
+
+class FlopCount(TorchDispatchMode):
+    """FLOP of the ops run inside, by torch's FLOP formulas (convolutions
+    and matmuls, forward and backward).  torch's FlopCounterMode tracks
+    modules with hooks that ``autograd.grad`` (R1) refuses."""
+
+    def __init__(self):
+        super().__init__()
+        self.flop = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        count = flop_registry.get(func._overloadpacket)
+        if count is not None:
+            self.flop += count(*args, **kwargs, out_val=out)
+        return out
+
+
+def profile_train_step(dev, root: str, steps: int = 20, profiled: int = 5) -> None:
+    """Full-width DUSty-II train step at batch 32 under bf16 through
+    ``Trainer.step`` on one device-resident batch: ms a step by CUDA events
+    around each of ``steps`` steps (the draws included; median, min and
+    max) and scans/s at the median, peak device memory, the FLOP of one
+    step (torch's formulas) against the bf16 tensor cores' rate, from
+    torch.profiler the device's busy time, its idle share of the profiled
+    wall time (which the host tracing slows) and of the unprofiled median,
+    the top device ops over ``profiled`` steps and the convolutions by
+    input shape over one; and the host's ms to collate one train batch (the
+    CLI's data path, one thread)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer = Trainer(train_cfg(root, "enable_amp=true"), dev, verbose=False)
+    batch = trainer.to_device(next(trainer.loader.epoch(0)))
+    for i in range(1, 4):  # warm-up: cuDNN's heuristics, allocator
+        trainer.step(i, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    events[0].record()
+    for i in range(steps):
+        trainer.step(4 + i, batch)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    ms = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    median = ms[len(ms) // 2]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with FlopCount() as fc:
+        trainer.step(100, batch)
+    flop = fc.flop
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(200, 200 + profiled):
+            trainer.step(i, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # which convolutions the device time goes to: aten ops with their input
+    # shapes (a second, host-traced profile: its wall time is not reported)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as shapes_prof:
+        trainer.step(300, batch)
+        torch.cuda.synchronize()
+    convs = [(getattr(e, "device_time_total", 0.0) / 1e3, e.key, e.input_shapes)
+             for e in shapes_prof.key_averages(group_by_input_shape=True)
+             if "conv" in e.key and e.key.startswith("aten::cudnn")
+             or e.key == "aten::convolution_backward"]
+    convs.sort(key=lambda r: -r[0])
+    print("train_step convolutions by device time (one step):", json.dumps(
+        [[round(t, 3), k, str(shapes)[:160]] for t, k, shapes in convs[:12]]))
+    batches, n = trainer.loader.epoch(1), min(5, len(trainer.loader))
+    t0 = time.perf_counter()
+    for _ in range(n):
+        next(batches)
+    host_batch_ms = (time.perf_counter() - t0) / n * 1e3
+    per_kernel, launches = {}, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            per_kernel[e.name] = per_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            launches += 1
+    top = sorted(per_kernel.items(), key=lambda r: -r[1])
+    busy_ms = sum(t for _, t in top)
+    print("train_step:", json.dumps({
+        "batch": TRAIN_BATCH, "policy": "bf16", "steps": steps, "ms_per_step_median": median,
+        "ms_per_step_min": ms[0], "ms_per_step_max": ms[-1],
+        "scans_per_sec_at_median": TRAIN_BATCH / median * 1e3, "peak_memory_gb": peak_gb,
+        "flop_per_step": flop, "bf16_bound_ms_per_step": flop / PEAK_BF16_FLOP_PER_S * 1e3,
+        "profiled_steps": profiled, "profiled_wall_ms_per_step": wall_ms / profiled,
+        "device_busy_ms_per_step": busy_ms / profiled if top else "not measured",
+        "device_idle_share": 1.0 - busy_ms / wall_ms if top else "not measured",
+        "device_idle_share_of_unprofiled_median": (1.0 - busy_ms / profiled / median
+                                                   if top else "not measured"),
+        "device_ops_per_step": launches / profiled,
+        "host_collate_ms_per_batch": host_batch_ms,
+        "top_device_ops_ms_per_step": [[k[:90], t / profiled] for k, t in top[:15]]}))
+
+
+def _to(obj, dev):
+    if isinstance(obj, torch.Tensor):
+        return obj.to(dev)
+    if isinstance(obj, dict):
+        return {k: _to(v, dev) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to(v, dev) for v in obj)
+    if hasattr(obj, "__dataclass_fields__"):
+        return type(obj)(**{k: _to(getattr(obj, k), dev) for k in obj.__dataclass_fields__})
+    return obj
+
+
+def one_step(cfg, dev, batch_np, draws, policy, seed: int = 0):
+    """One train step from weights initialised from ``seed`` on ``dev``;
+    returns (state, scalars)."""
+    cfg.model.gen.shape = list(cfg.dataset.shape)
+    cfg.model.dis.shape = list(cfg.dataset.shape)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        G, D = define_G(cfg), define_D(cfg)
+    state = create_train_state(G.to(dev), D.to(dev), lr_G=2e-3, lr_D=2e-3, beta1=0.0,
+                               beta2=0.99)
+    lidar = Lidar.from_angle_file(os.path.join(cfg.dataset.root, "angles.npy"),
+                                  tuple(cfg.dataset.shape), cfg.dataset.min_depth,
+                                  cfg.dataset.max_depth, device=dev)
+    step = TrainStep(lidar, batch_size=batch_np["depth"].shape[0], policy=policy,
+                     ema_decay=0.5 ** (batch_np["depth"].shape[0] / 10000.0))
+    depth = torch.from_numpy(batch_np["depth"]).permute(0, 3, 1, 2).contiguous().to(dev)
+    scalars = step(state, {"depth": depth}, _to(draws, dev))
+    return state, {k: float(v) for k, v in scalars.items()}
+
+
+def moments(opt, module) -> dict:
+    return {n: opt.state[p]["exp_avg"] for n, p in module.named_parameters()}
+
+
+def train_step_card_vs_cpu(dev, root: str) -> None:
+    """One float32 step at a small width (ch 8/16, in_ch 32, 64x256, batch
+    8) on the card and on the CPU from the same weights, batch and draws
+    (drawn on the CPU): G, D, G_ema and the Adam moments in relative L2."""
+    cfg = train_cfg(root, "enable_amp=false", "model.gen.in_ch=32", "model.gen.ch_base=8",
+                    "model.gen.ch_max=16", "model.dis.ch_base=8", "model.dis.ch_max=16",
+                    "solver.batch_size=8")
+    trainer_ds = Trainer(cfg, torch.device("cpu"), verbose=False)
+    batch = next(trainer_ds.loader.epoch(0))
+    draws = trainer_ds.draws(1)  # CPU generator
+    out = {}
+    for where in ("cuda", "cpu"):
+        d = dev if where == "cuda" else torch.device("cpu")
+        out[where] = one_step(copy.deepcopy(cfg), d, batch, draws, FP32_POLICY)
+    (sc, sc_cpu), errs = (out["cuda"][1], out["cpu"][1]), {}
+    card, cpu = out["cuda"][0], out["cpu"][0]
+    for name in ("G", "D", "G_ema"):
+        errs[name] = rel_l2({k: v.cpu() for k, v in getattr(card, name).state_dict().items()},
+                            getattr(cpu, name).state_dict())
+    for name, opt in (("mu_G", "opt_G"), ("mu_D", "opt_D")):
+        net = name[-1]
+        errs[name] = rel_l2({k: v.cpu() for k, v in moments(getattr(card, opt),
+                                                             getattr(card, net)).items()},
+                            moments(getattr(cpu, opt), getattr(cpu, net)))
+    worst = max(abs(sc[k] - sc_cpu[k]) / (1e-6 + STEP_SCALAR_RTOL * abs(sc_cpu[k]))
+                for k in sc_cpu)
+    print("train step card vs cpu (float32, small width, batch 8): relative L2",
+          json.dumps(errs), f"(weights held at {STEP_WEIGHT_REL_L2}, moments at "
+          f"{STEP_MOMENT_REL_L2}); scalars within {worst:.3f} of their hold (rtol "
+          f"{STEP_SCALAR_RTOL})")
+    if (max(errs[k] for k in ("G", "D", "G_ema")) > STEP_WEIGHT_REL_L2
+            or max(errs["mu_G"], errs["mu_D"]) > STEP_MOMENT_REL_L2 or worst > 1.0):
+        raise AssertionError(f"one train step on the card vs the CPU: {errs}, scalars {worst}")
+
+
+def train_step_bf16(dev, root: str) -> None:
+    """One full-width step under bf16 and under float32 from the same
+    weights, batch and draws (printed, not held: bf16 keeps 8 bits); and
+    D's logit under the bf16 policy moves when only far-field pixels move
+    (a ~110 m return, -0.9985, against dropped pixels, -1)."""
+    cfg = train_cfg(root, "enable_amp=true")
+    trainer = Trainer(cfg, torch.device("cpu"), verbose=False)
+    batch = next(trainer.loader.epoch(0))
+    draws = trainer.draws(1)
+    res = {name: one_step(copy.deepcopy(cfg), dev, batch, draws, policy)
+           for name, policy in (("bf16", DEFAULT_POLICY), ("float32", FP32_POLICY))}
+    b, f = res["bf16"][1], res["float32"][1]
+    if not all(math.isfinite(v) for v in list(b.values()) + list(f.values())):
+        raise AssertionError(f"non-finite scalars: bf16 {b}, float32 {f}")
+    print("train step bf16 vs float32 (full width, batch 32):", json.dumps(
+        {k: {"bf16": b[k], "float32": f[k], "delta": b[k] - f[k]} for k in sorted(f)}))
+    D = res["bf16"][0].D
+    x0 = torch.full((1, 1, 64, 256), -1.0, device=dev)
+    x1 = x0.clone()
+    x1[0, 0, 10:20, 50:200] = -0.9985
+    with torch.no_grad():
+        delta = float((D(x1, torch.bfloat16) - D(x0, torch.bfloat16)).abs().max())
+    print(f"D far-field logit change under bf16 (full width, trained one step): {delta:.3e}")
+    if not delta > 0.0:
+        raise AssertionError("D's bf16 logit does not see the far field")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--num-test", type=int, default=NUM_TEST,
@@ -1297,6 +1670,10 @@ def main(argv=None) -> int:
         emd_large_launches = emd_large_path(work, run)
         calibration_path(work, run, args.emd_num_test, dev)
         nn_launches, rec_clouds = reconstruction_path(work, run, args.num_step)
+        training = training_path(work, run)
+        profile_train_step(dev, run["root"])
+        train_step_card_vs_cpu(dev, run["root"])
+        train_step_bf16(dev, run["root"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for i, (x, y) in enumerate(rec_clouds):
@@ -1308,6 +1685,9 @@ def main(argv=None) -> int:
     entries[3]["launches"] = emd_launches["emd_block"]
     entries[4]["launches"] = emd_launches["emd_pair"]
     entries[3]["device_path"]["launches"] = emd_large_launches["emd_block"]
+    entries[0]["training"] = {"launches": training["launches"],
+                              **hold_training_blocks(training["blocks"])}
+    del training["blocks"]
     print(f"cd_block launches in one {args.num_test}-scan run: "
           f"{cd_launches // 2}; in one 5000-scan run: {protocol_launches()}")
     profile_inversion(dev, run)

@@ -3,14 +3,16 @@
 The port's own copy of ``dusty_gan_tpu/config.py``: ``compose`` reads the
 root config, resolves its ``defaults`` list and applies ``group=choice``
 and dotted-path overrides; ``Config`` is a nested dict with attribute
-access; ``save_config``/``load_config`` round-trip the resolved YAML that
-the evaluation CLIs consume.
+access; ``run_dir_for`` is the reference's run-directory template;
+``save_config``/``load_config`` round-trip the resolved YAML that the
+evaluation CLIs consume.
 """
 
 from __future__ import annotations
 
 import os
 import os.path as osp
+from datetime import datetime
 from typing import Any, Dict, List, Optional
 
 import yaml
@@ -114,6 +116,21 @@ def compose(
 
     cfg["_choices"] = dict(choices)
     return Config.wrap(cfg)
+
+
+def run_dir_for(cfg: Config, base: str = "outputs/logs",
+                now: Optional[datetime] = None) -> str:
+    """outputs/logs/dataset=…/model=…/solver=…/<date>/<time>."""
+    now = now or datetime.now()
+    ch = cfg.get("_choices", {})
+    return osp.join(
+        base,
+        f"dataset={ch.get('dataset', 'unknown')}",
+        f"model={ch.get('model', 'unknown')}",
+        f"solver={ch.get('solver', 'unknown')}",
+        now.strftime("%Y-%m-%d"),
+        now.strftime("%H-%M-%S"),
+    )
 
 
 def save_config(cfg: Config, run_dir: str) -> str:

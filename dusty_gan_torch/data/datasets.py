@@ -4,15 +4,18 @@
 Pre-projected (H0, W0, 4) ``.npy`` scans become {depth [0,1], mask, xyz
 (unit space)} at the model resolution by NEAREST subsampling: depth =
 ||xyz||, gated to (min_depth, max_depth), invalid pixels zeroed, optional
-horizontal flip at full resolution before the resize.  Evaluation reads
-items unflipped; the training-time flip draw is not ported yet.
+horizontal flip at full resolution before the resize.  A train split
+with ``dataset.flip`` draws each item's flip from the loader's per-item
+stream (``get``), as the JAX package does; evaluation splits read items
+unflipped.  The JAX package's resized-array caches are not ported: every
+item is processed from its raw scan.
 """
 
 from __future__ import annotations
 
 import os.path as osp
 from glob import glob
-from typing import Dict
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
@@ -39,9 +42,11 @@ class RangeImageDataset:
     """A list of ``.npy`` scan paths and the value pipeline."""
 
     def __init__(self, root: str, split: str, shape=(64, 256),
-                 min_depth: float = 0.9, max_depth: float = 120.0):
+                 min_depth: float = 0.9, max_depth: float = 120.0,
+                 flip: bool = False):
         self.root = root
         self.split = split
+        self.flip = bool(flip)
         self.shape = tuple(shape)
         self.min_depth = float(min_depth)
         self.max_depth = float(max_depth)
@@ -82,8 +87,18 @@ class RangeImageDataset:
     def item(self, index: int, flip: bool = False) -> Dict[str, np.ndarray]:
         return self._process(self._load_raw(index), flip)
 
+    def get(self, index: int, rng: Optional[np.random.Generator] = None,
+            keys: Optional[Sequence[str]] = None) -> Dict[str, np.ndarray]:
+        """Item ``index``, flipped when ``flip`` is set and the first draw of
+        ``rng`` exceeds 0.5 (None: the stream ``default_rng([0, index])``, the
+        JAX package's for its default seed); ``keys`` restricts the dict."""
+        if rng is None:
+            rng = np.random.default_rng([0, index])
+        item = self.item(index, flip=self.flip and rng.random() > 0.5)
+        return item if keys is None else {k: item[k] for k in keys}
+
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
-        return self.item(index)
+        return self.get(index)
 
     def __repr__(self):
         return (f"{self.__class__.__name__}(n={len(self)}, root={self.root}, "
@@ -124,4 +139,5 @@ def define_dataset(cfg, phase: str = "train"):
         shape=tuple(get("shape")),
         min_depth=get("min_depth"),
         max_depth=get("max_depth"),
+        flip=phase == "train" and bool(get("flip")),
     )

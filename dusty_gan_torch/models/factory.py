@@ -1,13 +1,13 @@
 """Model factory keyed by the reference config schema
-(``dusty_gan_tpu/models/factory.py:24-52``): ``cfg.model.gen.arch`` is
+(``dusty_gan_tpu/models/factory.py``): ``cfg.model.gen.arch`` is
 ``"{masker}/{backbone}"``, masker in {none, dusty1, dusty2}, backbone
-``dcgan_eqlr``."""
+``dcgan_eqlr``; ``cfg.model.dis.arch`` is ``dcgan_eqlr``."""
 
 from __future__ import annotations
 
 from typing import Any
 
-from dusty_gan_torch.models.dcgan_eqlr import Generator
+from dusty_gan_torch.models.dcgan_eqlr import Discriminator, Generator
 from dusty_gan_torch.models.dusty import DUSty1, DUSty2
 
 
@@ -41,3 +41,17 @@ def define_G(cfg):
     if masker_type == "none":
         return backbone
     raise NotImplementedError(masker_type)
+
+
+def define_D(cfg):
+    model = _get(cfg, "model", cfg)
+    dis = _get(model, "dis")
+    if _get(dis, "arch").lower() != "dcgan_eqlr":
+        raise NotImplementedError(_get(dis, "arch"))
+    return Discriminator(
+        in_ch=int(_get(dis, "in_ch")),
+        ch_base=int(_get(dis, "ch_base")),
+        ch_max=int(_get(dis, "ch_max")),
+        shape=tuple(_get(dis, "shape")),
+        ring=bool(_get(model, "ring", True)),
+    )

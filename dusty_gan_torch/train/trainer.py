@@ -1,0 +1,240 @@
+"""Trainer (``dusty_gan_tpu/train/trainer.py``): config -> models,
+optimizers, datasets, loader and train state on one device; ``step(i,
+batch)`` runs iteration i; ``validation`` scores G_ema; ``save`` writes a
+reference-format checkpoint; ``cfg.resume`` continues from one (the port's,
+or the JAX package's ``.pth`` export).
+
+Randomness: the weights are initialised from ``seed``; iteration i draws
+everything it needs (latents, Gumbel noise, DiffAugment, path-length
+noise) from one generator seeded ``derived_seed(seed, TRAIN_STREAM, i)``,
+as the JAX step folds i into its root key, so a resumed run replays the
+uninterrupted run's draws; validation draws its latents from a generator
+keyed on the image step.
+
+Validation (``validation``): the real side (val split, FPS to
+``solver.validation.num_points``) is computed once per sample count;
+G_ema in eval mode generates fresh samples; the scores are SWD, JSD,
+COV/MMD/1-NNA over three pairwise Chamfer matrices (kernel K1,
+``cd_block``, for CUDA tensors) and the drop-mask marginals
+``drop_rate/fake``, ``drop_rate/real`` and ``drop_row_l1``.
+"""
+
+from __future__ import annotations
+
+import os.path as osp
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from dusty_gan_torch import synchronize
+from dusty_gan_torch.core.dtypes import policy_from_cfg
+from dusty_gan_torch.data.datasets import define_dataset
+from dusty_gan_torch.data.loader import Loader
+from dusty_gan_torch.geometry.lidar import Lidar, tanh_to_sigmoid
+from dusty_gan_torch.metrics.cov_mmd_1nna import compute_cov_mmd_1nna
+from dusty_gan_torch.metrics.fps import downsample_point_clouds
+from dusty_gan_torch.metrics.jsd import compute_jsd
+from dusty_gan_torch.metrics.swd import TorchDraws, compute_swd
+from dusty_gan_torch.models.dusty import DUSty1, DUSty2
+from dusty_gan_torch.models.factory import define_D, define_G
+from dusty_gan_torch.train.checkpoint import (checkpoint_name, restore_checkpoint,
+                                              save_checkpoint)
+from dusty_gan_torch.train.state import create_train_state
+from dusty_gan_torch.train.step import TrainStep, fetch_reals, sample_draws
+
+TRAIN_STREAM, VALIDATION_STREAM = 0, 1
+
+
+def derived_seed(seed: int, stream: int, i: int) -> int:
+    """64-bit generator seed for draw ``i`` of ``stream``.  A CPU generator
+    keeps only the low 32 bits, so those carry (seed, stream, i) by odd
+    multipliers (distinct for every i below 2**32 within a stream); the high
+    bits carry the seed again for CUDA generators."""
+    low = (seed * 0x9E3779B1 + stream * 0x85EBCA77 + i) & 0xFFFFFFFF
+    return ((seed & 0x7FFFFFFF) << 32) | low
+
+
+def _not_ported(what: str):
+    raise NotImplementedError(f"{what} is not yet ported to dusty_gan_torch; use "
+                              "dusty_gan_tpu.cli.train for it")
+
+
+def check_ported(cfg) -> None:
+    """Raise for the JAX trainer's opt-in modes that the port lacks."""
+    if cfg.get("cache_device"):
+        _not_ported("cache_device=true (the device-resident dataset cache)")
+    if int(cfg.get("steps_per_call") or 0) > 1:
+        _not_ported("steps_per_call>1 (scan-chunk training)")
+    if cfg.get("transfer_dtype"):
+        _not_ported("transfer_dtype (a narrow host-to-device wire dtype)")
+
+
+class Trainer:
+    def __init__(self, cfg, device: torch.device, verbose: bool = True):
+        check_ported(cfg)
+        self.cfg = cfg
+        self.device = device
+        self.policy = policy_from_cfg(bool(cfg.get("enable_amp", True)))
+        self.seed = int(cfg.get("seed") or 0)
+        cfg.model.gen.shape = list(cfg.dataset.shape)
+        cfg.model.dis.shape = list(cfg.dataset.shape)
+        self.shape = tuple(cfg.dataset.shape)
+        self.in_ch = int(cfg.model.gen.in_ch)
+
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(self.seed)
+            G, D = define_G(cfg), define_D(cfg)
+        self.masked = isinstance(G, (DUSty1, DUSty2))
+
+        angle_file = next((p for p in (osp.join(cfg.dataset.root, c)
+                                       for c in ("angles.npy", "angles.pt"))
+                           if osp.exists(p)), None)
+        if angle_file is None:
+            raise FileNotFoundError(f"no angles.npy/angles.pt under {cfg.dataset.root}")
+        self.lidar = Lidar.from_angle_file(angle_file, self.shape, cfg.dataset.min_depth,
+                                           cfg.dataset.max_depth, device=device)
+
+        solver = cfg.solver
+        self.batch_size = int(solver.batch_size)
+        self.num_accumulation = int(solver.get("num_accumulation", 1))
+        if self.batch_size % self.num_accumulation:
+            raise ValueError(f"batch {self.batch_size} does not split into "
+                             f"{self.num_accumulation} accumulation rounds")
+        self.ema_decay = 0.5 ** (self.batch_size / (float(solver.smoothing_kimg) * 1000.0))
+        lr = solver.lr
+        decay = lr.alpha.get("decay") or {}
+        self.state = create_train_state(
+            G.to(device), D.to(device), lr_G=float(lr.alpha.gen), lr_D=float(lr.alpha.dis),
+            beta1=float(lr.beta1), beta2=float(lr.beta2),
+            decay_gamma=float(decay.get("gamma", 1.0)),
+            decay_step_size=int(decay.get("step_size", 1)))
+
+        self.dataset = define_dataset(cfg.dataset, phase="train")
+        if len(self.dataset) < self.batch_size:
+            raise ValueError(
+                f"train split has {len(self.dataset)} scans but one step needs "
+                f"batch_size = {self.batch_size}; reduce solver.batch_size or add "
+                f"data (root={cfg.dataset.root})")
+        self.loader = Loader(self.dataset, self.batch_size, shuffle=True, drop_last=True,
+                             seed=self.seed, keys=("depth",))
+        self.val_dataset = define_dataset(cfg.dataset, phase="val")
+        self.val_loader = Loader(self.val_dataset, self.batch_size)
+
+        self.augment_policy = tuple(solver.augment or [])
+        self.train_step = TrainStep(
+            self.lidar, gan_mode=str(solver.gan_mode),
+            label_smoothing=float((solver.get("label") or {}).get("smoothing", 1.0)),
+            loss_weight={k: float(v) for k, v in dict(solver.loss).items()},
+            drop_const=float(cfg.model.gen.drop_const),
+            num_accumulation=self.num_accumulation, ema_decay=self.ema_decay,
+            batch_size=self.batch_size, policy=self.policy)
+
+        self.start_iteration = 0
+        if cfg.get("resume"):
+            seed = restore_checkpoint(str(cfg.resume), self.state)
+            if seed is not None:  # the run's own seed rules its draws and its loader
+                self.seed = self.loader.seed = seed
+            self.start_iteration = self.state.step // self.batch_size
+            if verbose:
+                print(f"resumed from {cfg.resume} at iteration {self.start_iteration}")
+        self._val_cache: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+        if verbose:
+            n = sum(p.numel() for p in self.state.G.parameters())
+            print(f"device: {device}, G params: {n:,}, batch {self.batch_size} x accum "
+                  f"{self.num_accumulation}, ema decay {self.ema_decay:.6f}")
+
+    # ------------------------------------------------------------------
+    def to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """(B, H, W, 1) host arrays -> (B, 1, H, W) tensors on the device
+        (through pinned memory, without a host wait, on CUDA)."""
+        out = {}
+        for k in ("depth", "mask"):
+            if k in batch:
+                t = torch.from_numpy(np.ascontiguousarray(batch[k])).permute(0, 3, 1, 2)
+                if self.device.type == "cuda":
+                    t = t.pin_memory().to(self.device, non_blocking=True)
+                out[k] = t
+        return out
+
+    def draws(self, i: int):
+        """Every draw of iteration ``i``."""
+        g = torch.Generator(device=self.device)
+        g.manual_seed(derived_seed(self.seed, TRAIN_STREAM, i))
+        return sample_draws(
+            g, self.device, self.state.G, rounds=self.num_accumulation,
+            b=self.batch_size // self.num_accumulation, in_ch=self.in_ch, shape=self.shape,
+            augment_policy=self.augment_policy,
+            relativistic=self.train_step.relativistic, use_pl=self.train_step.use_pl)
+
+    def step(self, i: int, batch) -> Dict[str, torch.Tensor]:
+        """Iteration ``i`` (1-based) on a host or device batch."""
+        if isinstance(batch["depth"], np.ndarray):
+            batch = self.to_device(batch)
+        return self.train_step(self.state, batch, self.draws(i))
+
+    # ------------------------------------------------------------------
+    def _inv_to_points(self, inv_nhwc: torch.Tensor) -> torch.Tensor:
+        inv01 = torch.clamp(tanh_to_sigmoid(inv_nhwc), 0.0, 1.0)
+        xyz = self.lidar.inv_to_xyz(inv01, 1e-8)
+        return downsample_point_clouds(xyz.reshape(xyz.shape[0], -1, 3),
+                                       int(self.cfg.solver.validation.num_points))
+
+    def _val_real_side(self, n_total: int):
+        """(inverse depth (N, H, W, 1), clouds (N, P, 3)) of the first
+        ``n_total`` val scans, computed once per ``n_total``."""
+        hit = self._val_cache.get(n_total)
+        if hit is None:
+            real_2d, real_3d, seen = [], [], 0
+            drop = float(self.cfg.model.gen.drop_const)
+            for batch in self.val_loader.epoch(0):
+                inv, _ = fetch_reals(self.to_device(batch), self.lidar, drop)
+                inv = inv.permute(0, 2, 3, 1)
+                real_2d.append(inv)
+                real_3d.append(self._inv_to_points(inv))
+                seen += inv.shape[0]
+                if seen >= n_total:
+                    break
+            hit = (torch.cat(real_2d)[:n_total], torch.cat(real_3d)[:n_total])
+            self._val_cache[n_total] = hit
+        return hit
+
+    @torch.no_grad()
+    def validation(self, max_samples: Optional[int] = None) -> Dict[str, float]:
+        """Scores of G_ema against the val split."""
+        n_total = len(self.val_dataset) if max_samples is None else min(
+            len(self.val_dataset), max_samples)
+        real_2d, real_3d = self._val_real_side(n_total)
+        G = self.state.G_ema.eval()
+        g = torch.Generator(device=self.device)
+        g.manual_seed(derived_seed(self.seed, VALIDATION_STREAM, self.state.step))
+        cdt = self.policy.compute_dtype
+        fake_2d, fake_3d = [], []
+        for _ in range(0, n_total, self.batch_size):
+            z = torch.randn((self.batch_size, self.in_ch), generator=g, device=self.device)
+            out = (G(z, cdt, train=False, generator=g) if self.masked else G(z, cdt))
+            inv = out["depth"].permute(0, 2, 3, 1)
+            fake_2d.append(inv)
+            fake_3d.append(self._inv_to_points(inv))
+        fake_2d = torch.cat(fake_2d)[:n_total]
+        fake_3d = torch.cat(fake_3d)[:n_total]
+
+        scores = dict(compute_swd(fake_2d, real_2d, TorchDraws(self.seed)))
+        scores["jsd"] = compute_jsd(fake_3d / 2.0, real_3d / 2.0)
+        scores.update(compute_cov_mmd_1nna(fake_3d, real_3d, 512, ("cd",)))
+        # per-elevation-row drop rates: dropped pixels sit at drop_const on
+        # both sides
+        drop_thr = float(self.cfg.model.gen.drop_const) + 1e-3
+        p_fake = (fake_2d < drop_thr).float().mean(dim=(0, 2, 3))
+        p_real = (real_2d < drop_thr).float().mean(dim=(0, 2, 3))
+        scores["drop_rate/fake"] = p_fake.mean()
+        scores["drop_rate/real"] = p_real.mean()
+        scores["drop_row_l1"] = (p_fake - p_real).abs().mean()
+        synchronize(self.device)
+        return {k: float(v) for k, v in scores.items()}
+
+    # ------------------------------------------------------------------
+    def save(self, models_dir: str, images_seen: int) -> str:
+        return save_checkpoint(osp.join(models_dir, checkpoint_name(images_seen)),
+                               self.state, self.seed)

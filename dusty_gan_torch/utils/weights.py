@@ -1,4 +1,4 @@
-"""Carry generator weights into the port.
+"""Carry weights and optimizer state into the port.
 
 The port's modules use the reference ``.pth`` state-dict keys, so weights
 arrive either as a reference-format ``.pth`` (``{"G", "G_ema", "step",
@@ -14,6 +14,15 @@ JAX ``.ckpt``) or as a JAX parameter tree (a nested dict of arrays), which
 
 DUSty models prefix the backbone with ``backbone.``, add the ``drop_const``
 buffer and, with a learnable temperature, ``gumbel*.weight``.
+``discriminator_state_dict`` maps a JAX discriminator tree the same way:
+
+  down{0..3}/EqualLRConv_0/kernel (4,4,I,O)  -> {1..4}.1.module.weight (O,I,4,4)
+  down{0..3}/FusedLeakyReLU_0/bias           -> {1..4}.2.bias
+  final/{kernel,bias}                        -> 5.module.{weight,bias}
+
+plus the BlurVH filter buffers.  ``adam_state_dict`` turns Adam moments
+(optax's mu, nu and count, mapped to state dicts by the same functions)
+into a ``torch.optim.Adam`` state dict.
 """
 
 from __future__ import annotations
@@ -27,6 +36,11 @@ import torch
 def _convt(w) -> torch.Tensor:  # (kh, kw, I, O) -> torch ConvT (I, O, kh, kw)
     return torch.from_numpy(np.ascontiguousarray(
         np.transpose(np.asarray(w, np.float32), (2, 3, 0, 1))))
+
+
+def _conv(w) -> torch.Tensor:  # HWIO -> torch conv (O, I, kh, kw)
+    return torch.from_numpy(np.ascontiguousarray(
+        np.transpose(np.asarray(w, np.float32), (3, 2, 0, 1))))
 
 
 def _f32(x) -> torch.Tensor:
@@ -69,6 +83,41 @@ def generator_state_dict(params: Dict, arch: str,
         if mod in p:
             sd[f"{mod}.weight"] = _f32(p[mod]["weight"]).reshape(())
     return sd
+
+
+def discriminator_state_dict(params: Dict) -> Dict[str, torch.Tensor]:
+    """JAX discriminator parameter tree -> the port's (and the reference's)
+    discriminator state dict, with the [1,2,1]/4 blur buffers."""
+    p = params["params"] if "params" in params else params
+    taps = torch.tensor([0.25, 0.5, 0.25])
+    sd = {"0.blur_v.kernel": taps.reshape(1, 1, 3, 1).clone(),
+          "0.blur_h.kernel": taps.reshape(1, 1, 1, 3).clone()}
+    for i in range(4):
+        down = p[f"down{i}"]
+        sd[f"{i + 1}.1.module.weight"] = _conv(down["EqualLRConv_0"]["kernel"])
+        sd[f"{i + 1}.2.bias"] = _f32(down["FusedLeakyReLU_0"]["bias"])
+    sd["5.module.weight"] = _conv(p["final"]["kernel"])
+    sd["5.module.bias"] = _f32(p["final"]["bias"])
+    return sd
+
+
+def adam_state_dict(module: torch.nn.Module, mu_sd: Dict, nu_sd: Dict, count: int,
+                    lr: float, betas: Tuple[float, float], eps: float = 1e-8) -> Dict:
+    """A ``torch.optim.Adam`` state dict for ``make_optimizer(module)``:
+    ``mu_sd`` / ``nu_sd`` hold the first and second moments keyed like
+    ``module.state_dict()`` (a moment tree mapped by the same function as
+    the weights), ``count`` the updates made.  Parameter indices follow
+    ``module.named_parameters()``."""
+    names = [n for n, _ in module.named_parameters()]
+    state = {i: {"step": torch.tensor(float(count)),
+                 "exp_avg": torch.as_tensor(mu_sd[n], dtype=torch.float32).clone(),
+                 "exp_avg_sq": torch.as_tensor(nu_sd[n], dtype=torch.float32).clone()}
+             for i, n in enumerate(names)}
+    group = {"lr": float(lr), "betas": tuple(float(b) for b in betas), "eps": float(eps),
+             "weight_decay": 0.0, "amsgrad": False, "maximize": False, "foreach": None,
+             "capturable": False, "differentiable": False, "fused": None,
+             "params": list(range(len(names)))}
+    return {"state": state, "param_groups": [group]}
 
 
 def load_reference_checkpoint(path: str, which: str = "G_ema") -> Tuple[Dict, int]:

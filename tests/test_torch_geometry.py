@@ -143,7 +143,7 @@ def test_define_dataset_and_sequential_loader(trees):
     assert ts.datalist == js.datalist
     assert tds.define_dataset(cfg, "test").datalist == jds.define_dataset(cfg, "test").datalist
     got = list(Loader(ts, batch_size=2).epoch())
-    js.flip = False  # the evaluation loader reads unflipped items in order
+    # the train split draws its flips from the same per-item streams in both
     want = list(JaxLoader(js, batch_size=2, shuffle=False, drop_last=False).epoch(0))
     assert len(got) == len(want) == 3 and len(Loader(ts, 2)) == 3
     for g, w in zip(got, want):
