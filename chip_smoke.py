@@ -52,12 +52,30 @@
    change.
    Each path's kernel launch counts are set to 0 just before it and read
    just after.
+   Around the training phase: (a) the data path: the native library
+   against the numpy pipeline on this host, bit for bit; the resized
+   cache's build seconds for the train split, with and without the flip
+   cache; the host's ms to collate a batch of 32 from raw scans, from the
+   cache and from the flip cache.  Training run 1 reads the resized cache
+   (``cache_dataset``).  (b) the device cache: its first batches against
+   the host path's bit for bit (flips included), its bytes, upload
+   seconds and per-step gather time beside the KITTI-size projection; a
+   CLI run with ``cache_device=true`` resumed from run 1's checkpoint and
+   held as run 2 is, and a CLI run with ``transfer_dtype=float16``.  (c)
+   ``dusty_gan_torch.cli.tune_tolerance`` on run 1's final G_ema (full
+   width), the 256-scan val split at 512 points, 8 TPE trials; K1 is held
+   against its plain version on the blocks the trials gave it.  (d)
+   ``dusty_gan_torch.cli.process_kitti`` on 32 raw 64x2048 scans that the
+   script writes, native against numpy bit for bit, scans a second.  (e)
+   ``Lidar.points_to_depth`` at 64x2048 on 16,384 points of a processed
+   scan, card against CPU, image and gradient.
 6. Checks the scores (every key, finite) and, on small inputs, the card's
    scores, pairwise EMD matrices, generator output and inversion against
    the CPU, and one
    inversion step's bf16 gradient for z against float32 on the card.
 7. Prints a JSON line of per-kernel numbers (K1's with its training-path
-   launches under ``training``), the card line, and as the last line
+   launches under ``training`` and its tolerance-tuning launches under
+   ``tune_tolerance``), the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, with no result line, when there is no GPU or any phase
@@ -80,6 +98,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
@@ -90,9 +109,15 @@ sys.path.insert(0, REPO)
 from dusty_gan_torch import kernels  # noqa: E402
 from dusty_gan_torch.cli import evaluate_reconstruction as er  # noqa: E402
 from dusty_gan_torch.cli import evaluate_synthesis as es  # noqa: E402
+from dusty_gan_torch.cli import process_kitti  # noqa: E402
 from dusty_gan_torch.cli import train as train_cli  # noqa: E402
+from dusty_gan_torch.cli import tune_tolerance  # noqa: E402
 from dusty_gan_torch.config import compose, save_config  # noqa: E402
-from dusty_gan_torch.data.synthetic import build_synthetic_kitti  # noqa: E402
+from dusty_gan_torch.data import preprocess  # noqa: E402
+from dusty_gan_torch.data.datasets import define_dataset  # noqa: E402
+from dusty_gan_torch.data.loader import Loader  # noqa: E402
+from dusty_gan_torch.data.synthetic import (  # noqa: E402
+    build_synthetic_kitti, synthetic_scene_depth)
 from dusty_gan_torch.geometry.lidar import Lidar  # noqa: E402
 from dusty_gan_torch.core.dtypes import DEFAULT_POLICY, FP32_POLICY  # noqa: E402
 from dusty_gan_torch.metrics import chamfer, chamfer_cuda, cov_mmd_1nna, emd_cuda  # noqa: E402
@@ -1327,11 +1352,13 @@ def rel_l2(got: dict, want: dict) -> float:
 
 
 def training_path(work: str, run: dict) -> dict:
-    """dusty_gan_torch.cli.train at full width (DUSty-II, batch 32, bf16):
-    run 1 with stats, one validation (pairwise CD on K1) and checkpoints;
+    """dusty_gan_torch.cli.train at full width (DUSty-II, batch 32, bf16),
+    reading the resized cache (``cache_dataset``, the default): run 1 with
+    stats, one validation (pairwise CD on K1) and checkpoints;
     run 2 resumed from run 1's mid-run checkpoint, its first step's scalars
     and its final G_ema held against run 1's.  Returns the run's K1
-    launches, the blocks K1 was given and the stage times."""
+    launches, the blocks K1 was given, the stage times, run 1's directory
+    and its CLI scans/s."""
     root = run["root"]
     dir1, dir2 = os.path.join(work, "train1"), os.path.join(work, "train2")
     blocks = []
@@ -1361,29 +1388,11 @@ def training_path(work: str, run: dict) -> dict:
                                    f"solver.checkpoint.test={10 * TRAIN_ITERS}"), timings=t2)
     wall2 = time.perf_counter() - t0
 
-    rows1, rows2 = logged(dir1), logged(dir2)
-    first = (TRAIN_SAVE + 1) * TRAIN_BATCH
-    a, b = rows1[first], rows2[first]
-    if set(a) != set(b) or not all(math.isfinite(v) for r in rows1.values() for v in r.values()):
-        raise AssertionError(f"logged scalars: {sorted(a)} vs {sorted(b)}")
-    worst = max(abs(a[k] - b[k]) / (RESUME_SCALAR_ATOL + RESUME_SCALAR_RTOL * abs(a[k]))
-                for k in a if k.startswith("loss/"))
+    hold_resume(dir1, dir2, "resumed")
+    rows1 = logged(dir1)
     scores = {k: v for r in rows1.values() for k, v in r.items() if k.startswith("score/")}
     if not scores:
         raise AssertionError("run 1 logged no validation scores")
-    final = f"checkpoint_{TRAIN_ITERS * TRAIN_BATCH:010d}.pth"
-    ema1 = torch.load(os.path.join(dir1, "models", final), weights_only=True)["G_ema"]
-    ema2 = torch.load(os.path.join(dir2, "models", final), weights_only=True)["G_ema"]
-    ema_err = rel_l2(ema2, ema1)
-    print(f"training, resumed at iteration {TRAIN_SAVE}: iteration {TRAIN_SAVE + 1}'s "
-          f"losses within {worst:.3f} of their hold (rtol {RESUME_SCALAR_RTOL}, atol "
-          f"{RESUME_SCALAR_ATOL}); final G_ema relative L2 {ema_err:.3e} (held at "
-          f"{RESUME_EMA_REL_L2})")
-    print("training iteration", TRAIN_SAVE + 1, "run 1:", json.dumps(a, sort_keys=True))
-    print("training iteration", TRAIN_SAVE + 1, "run 2:", json.dumps(b, sort_keys=True))
-    if worst > 1.0 or ema_err > RESUME_EMA_REL_L2:
-        raise AssertionError(f"the resumed run left run 1: losses {worst}x their hold, "
-                             f"G_ema {ema_err}")
     sps = {step // TRAIN_BATCH: r["perf/scans_per_sec"] for step, r in rows1.items()
            if "perf/scans_per_sec" in r}
     print("validation scores (random weights, iteration 30):", json.dumps(scores, sort_keys=True))
@@ -1392,32 +1401,349 @@ def training_path(work: str, run: dict) -> dict:
         "validation_s": t1["validation_s"], "validation_cd_block_launches": launches["cd_block"],
         "train_run2_s": wall2, "cli_scans_per_sec_by_iteration": sps}))
     return {"launches": launches["cd_block"], "blocks": blocks,
-            "validation_s": t1["validation_s"]}
+            "validation_s": t1["validation_s"], "dir": dir1, "sps": sps}
 
 
-def hold_training_blocks(blocks: list) -> dict:
-    """K1 on the training path's own (rows, cols) blocks against the plain
-    version; times both on the first block."""
+def hold_resume(dir1: str, dir2: str, name: str) -> None:
+    """Run 2 (``dir2``), resumed from run 1's checkpoint at TRAIN_SAVE, held
+    to run 1: the losses of its first iteration and its final G_ema."""
+    rows1, rows2 = logged(dir1), logged(dir2)
+    first = (TRAIN_SAVE + 1) * TRAIN_BATCH
+    a, b = rows1[first], rows2[first]
+    if set(a) != set(b) or not all(math.isfinite(v) for r in (rows1, rows2)
+                                   for row in r.values() for v in row.values()):
+        raise AssertionError(f"{name}: logged scalars {sorted(a)} vs {sorted(b)}")
+    worst = max(abs(a[k] - b[k]) / (RESUME_SCALAR_ATOL + RESUME_SCALAR_RTOL * abs(a[k]))
+                for k in a if k.startswith("loss/"))
+    final = f"checkpoint_{TRAIN_ITERS * TRAIN_BATCH:010d}.pth"
+    ema1 = torch.load(os.path.join(dir1, "models", final), weights_only=True)["G_ema"]
+    ema2 = torch.load(os.path.join(dir2, "models", final), weights_only=True)["G_ema"]
+    ema_err = rel_l2(ema2, ema1)
+    print(f"training, {name} at iteration {TRAIN_SAVE}: iteration {TRAIN_SAVE + 1}'s "
+          f"losses within {worst:.3f} of their hold (rtol {RESUME_SCALAR_RTOL}, atol "
+          f"{RESUME_SCALAR_ATOL}); final G_ema relative L2 {ema_err:.3e} (held at "
+          f"{RESUME_EMA_REL_L2})")
+    print(f"training iteration {TRAIN_SAVE + 1} run 1:", json.dumps(a, sort_keys=True))
+    print(f"training iteration {TRAIN_SAVE + 1} {name}:", json.dumps(b, sort_keys=True))
+    if worst > 1.0 or ema_err > RESUME_EMA_REL_L2:
+        raise AssertionError(f"the {name} run left run 1: losses {worst}x their hold, "
+                             f"G_ema {ema_err}")
+
+
+def hold_blocks(blocks: list, path: str) -> dict:
+    """K1 on a path's own (rows, cols) blocks against the plain version;
+    times both on the first block."""
     max_abs = 0.0
     for rows, cols in blocks:
         got = chamfer_cuda.cd_block(rows, cols)
         want = chamfer_cuda.cd_block_reference(rows, cols)
         err = (got - want).abs()
         if bool((err > CD_ATOL + CD_RTOL * want.abs()).any()):
-            raise AssertionError(f"cd_block on a training validation block "
-                                 f"{tuple(rows.shape)}x{tuple(cols.shape)}: max abs err "
-                                 f"{float(err.max())}")
+            raise AssertionError(f"cd_block on a {path} block {tuple(rows.shape)}x"
+                                 f"{tuple(cols.shape)}: max abs err {float(err.max())}")
         max_abs = max(max_abs, float(err.max()))
     rows, cols = blocks[0]
     ms = cuda_ms(lambda: chamfer_cuda.cd_block(rows, cols), iters=20)
     plain_ms = cuda_ms(lambda: chamfer_cuda.cd_block_reference(rows, cols), iters=2)
     (r, n, _), (c, m, _) = rows.shape, cols.shape
     shape = f"({r},{n})x({c},{m})"
-    print(f"cd_block on the training path's {len(blocks)} validation blocks: max_abs_err "
-          f"{max_abs:.3e} (rtol {CD_RTOL}, atol {CD_ATOL}); {shape}: kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms")
+    print(f"cd_block on the {path} path's {len(blocks)} blocks: max_abs_err {max_abs:.3e} "
+          f"(rtol {CD_RTOL}, atol {CD_ATOL}); {shape}: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms")
     return {"shape": shape, "blocks": len(blocks), "max_abs_err": max_abs, "ms": ms,
             "plain_ms": plain_ms}
+
+
+# ---------------------------------------------------------------------------
+# the data path, the device cache, tolerance tuning, KITTI preprocessing and
+# points_to_depth
+# ---------------------------------------------------------------------------
+
+COLLATE_BATCHES = 5  # batches timed per host collate variant
+NATIVE_CHECK_STRIDE = 8  # every 8th train scan: native against numpy, both flips
+DEVICE_CACHE_BATCHES = 6  # first batches of the device cache held to the host path
+F16_ITERS = 14  # the transfer_dtype=float16 CLI run
+TUNE_TRIALS, TUNE_POINTS = 8, 512
+# raw KITTI-format scans the preprocessing phase writes: 24 in train seq 00, 8
+# in val seq 08, 64 rings of 2048 returns at most (~115k points a scan)
+KITTI_SEQ_SCANS, KITTI_H, KITTI_W = {0: 24, 8: 8}, 64, 2048
+P2D_POINTS = 16384
+# points_to_depth card vs CPU: CUDA's and the CPU's float32 atan2 differ by an
+# ulp on some points, which moves a point whose two nearest grid angles are
+# that close to the other one: at most this share of points may change
+# pixel, of pixels may change value, and the gradient may move by this
+# relative L2
+P2D_MOVED_SHARE, P2D_GRAD_REL_L2, P2D_ATOL = 1e-3, 1e-2, 1e-5
+KITTI_TRAIN_SCANS = 19130  # KITTI odometry's train split, sequences 00-07, 09, 10
+
+
+def collate_ms(ds) -> float:
+    """The trainer's host collate (batch 32, depth only, one thread): ms a
+    batch over COLLATE_BATCHES batches of epoch 1."""
+    batches = Loader(ds, TRAIN_BATCH, shuffle=True, drop_last=True, seed=0,
+                     keys=("depth",)).epoch(1)
+    next(batches)
+    t0 = time.perf_counter()
+    for _ in range(COLLATE_BATCHES):
+        next(batches)
+    return (time.perf_counter() - t0) / COLLATE_BATCHES * 1e3
+
+
+def data_path(work: str, run: dict) -> None:
+    """Native library against numpy on this host, bit for bit (every 8th
+    train scan, both flips); the resized cache's build seconds for the
+    train split, without and with the flip cache; the host's ms to collate
+    a batch from raw scans, from the cache and from the flip cache."""
+    dcfg = copy.deepcopy(run["cfg"].dataset)
+    raw = define_dataset(dcfg, "train")
+    items = 0
+    for i in range(0, len(raw), NATIVE_CHECK_STRIDE):
+        scan = raw._load_raw(i)
+        for flip in (False, True):
+            a, b = raw._process(scan, flip), raw._process(scan, flip, native=False)
+            for k in a:
+                if not np.array_equal(a[k], b[k]):
+                    raise AssertionError(f"native and numpy items differ: scan {i}, "
+                                         f"flip {flip}, {k}")
+            items += 1
+    cache_dir = os.path.join(work, "cache_probe")
+    t0 = time.perf_counter()
+    cached = define_dataset(dcfg, "train", cache_dir=cache_dir)
+    build_s = time.perf_counter() - t0
+    dcfg.flip = True
+    t0 = time.perf_counter()
+    cached_flip = define_dataset(dcfg, "train", cache_dir=cache_dir)
+    build_flip_s = time.perf_counter() - t0
+    out = {"native_equals_numpy_items": items, "train_scans": len(raw),
+           "cache_build_s": build_s, "cache_build_with_flip_s": build_flip_s,
+           "host_collate_ms_per_batch": {"raw": collate_ms(raw), "cached": collate_ms(cached),
+                                         "cached_flip": collate_ms(cached_flip)},
+           "batch": TRAIN_BATCH, "threads": 1}
+    print("data_path:", json.dumps(out))
+
+
+def device_cache_path(dev, work: str, run: dict, dir1: str) -> dict:
+    """The device cache: its first batches against the host path's bit for
+    bit (with flips), its bytes, upload seconds and per-step gather time,
+    the host path's per-batch copy; then the CLI with ``cache_device=true``
+    resumed from run 1's mid-run checkpoint (run 1 read host batches), held
+    as run 2 is; and a short CLI run with ``transfer_dtype=float16``.
+    Returns the CLI scans/s of both runs."""
+    root = run["root"]
+    host = Trainer(train_cfg(root, "dataset.flip=true"), dev, verbose=False)
+    cached = Trainer(train_cfg(root, "dataset.flip=true", "cache_device=true"), dev,
+                     verbose=False)
+    a, b = host.device_iter(), cached.device_iter()
+    for i in range(DEVICE_CACHE_BATCHES):
+        if not torch.equal(next(a)["depth"], next(b)["depth"]):
+            raise AssertionError(f"device cache batch {i} differs from the host path's")
+    a.close()
+    cache = cached.device_cache
+    epoch, idx = next(cached.loader.index_stream(0))
+    gather_ms = cuda_ms(lambda: cache.batch(epoch, idx), iters=50)
+    host_batch = next(host.loader.epoch(0))
+    copy_ms = {}
+    for name, dt in (("float32", None), ("float16", torch.float16)):
+        host.transfer_dtype = dt
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            host.to_device(host_batch)
+        torch.cuda.synchronize()
+        copy_ms[name] = (time.perf_counter() - t0) / 20 * 1e3
+    stats = {"scans": cache.n, "flip": cache.flip, "nbytes": cache.nbytes,
+             "upload_s": cache.upload_s, "gather_ms_per_step": gather_ms,
+             "batches_equal_to_host_path": DEVICE_CACHE_BATCHES,
+             "host_to_device_ms_per_batch": copy_ms,
+             "kitti_projection_gb": {"train_scans": KITTI_TRAIN_SCANS,
+                                     "depth": KITTI_TRAIN_SCANS * 64 * 256 * 4 / 1e9,
+                                     "depth_with_flip": 2 * KITTI_TRAIN_SCANS * 64 * 256 * 4 / 1e9}}
+    del host, cached, a, b, cache
+    torch.cuda.empty_cache()
+
+    mid = os.path.join(dir1, "models", f"checkpoint_{TRAIN_SAVE * TRAIN_BATCH:010d}.pth")
+    dir3, dir4 = os.path.join(work, "train3"), os.path.join(work, "train4")
+    t0 = time.perf_counter()
+    train_cli.main(train_overrides(root, dir3, TRAIN_ITERS, f"resume={mid}", "cache_device=true",
+                                   f"solver.checkpoint.test={10 * TRAIN_ITERS}"))
+    stats["train_run3_cache_device_s"] = time.perf_counter() - t0
+    hold_resume(dir1, dir3, "resumed with cache_device=true")
+    t0 = time.perf_counter()
+    train_cli.main(train_overrides(root, dir4, F16_ITERS, "transfer_dtype=float16",
+                                   f"solver.checkpoint.test={10 * TRAIN_ITERS}"))
+    stats["train_run4_float16_s"] = time.perf_counter() - t0
+    rows4 = logged(dir4)
+    if not all(math.isfinite(v) for r in rows4.values() for v in r.values()):
+        raise AssertionError(f"transfer_dtype=float16 logged non-finite scalars: {rows4}")
+    for name, d in (("cache_device", dir3), ("float16", dir4)):
+        stats[f"cli_scans_per_sec_by_iteration_{name}"] = {
+            step // TRAIN_BATCH: r["perf/scans_per_sec"] for step, r in logged(d).items()
+            if "perf/scans_per_sec" in r}
+    print("device_cache:", json.dumps(stats))
+    return stats
+
+
+def tune_path(work: str, dir1: str) -> dict:
+    """dusty_gan_torch.cli.tune_tolerance on run 1's final G_ema (full
+    width), the 256-scan val split at 512 points, TUNE_TRIALS TPE trials;
+    returns K1's launches, the blocks it was given and the stage times."""
+    blocks = []
+
+    def recording_cd_block(rows, cols):
+        blocks.append((rows.clone(), cols.clone()))
+        return chamfer_cuda.cd_block(rows, cols)
+
+    ckpt = os.path.join(dir1, "models", f"checkpoint_{TRAIN_ITERS * TRAIN_BATCH:010d}.pth")
+    args = ["--model-path", ckpt, "--config-path", os.path.join(dir1, ".hydra", "config.yaml"),
+            "--save-dir-path", os.path.join(work, "tune"), "--num-samples", str(TUNE_TRIALS),
+            "--num-points", str(TUNE_POINTS), "--device", "cuda"]
+    t = {}
+    reset_launches()
+    cov_mmd_1nna.cd_block = recording_cd_block
+    try:
+        t0 = time.perf_counter()
+        best = tune_tolerance.main(args, timings=t)
+        wall = time.perf_counter() - t0
+    finally:
+        cov_mmd_1nna.cd_block = chamfer_cuda.cd_block
+    launches = launch_counts()
+    if launches["cd_block"] <= 0 or not blocks:
+        raise AssertionError(f"tune_tolerance launched cd_block {launches['cd_block']} times")
+    (out,) = glob.glob(os.path.join(work, "tune", "tune_*.json"))
+    with open(out) as f:
+        trials = json.load(f)["trials"]
+    if len(trials) != TUNE_TRIALS or not all(math.isfinite(v) for r in trials
+                                             for v in r.values()):
+        raise AssertionError(f"tune_tolerance trials: {trials}")
+    print("tune_tolerance best:", json.dumps(best, sort_keys=True))
+    print("stages:", json.dumps({"tune_run_s": wall, **t, "trials": TUNE_TRIALS,
+                                 "s_per_trial": t["trials_s"] / TUNE_TRIALS,
+                                 "cd_block_launches": launches["cd_block"]}))
+    return {"launches": launches["cd_block"], "blocks": blocks}
+
+
+def write_velodyne_tree(root: str) -> None:
+    """Raw KITTI-format .bin scans: per scan 64 rings, each a counterclockwise
+    sweep of 2048 azimuths from yaw 0 (jittered), depth from the synthetic
+    scene, no return where it drops out; reflectance uniform."""
+    rng = np.random.RandomState(8)
+    pitch = np.radians(np.linspace(2.0, -24.8, KITTI_H))[:, None]
+    for seq, n in KITTI_SEQ_SCANS.items():
+        d = os.path.join(root, "dataset", "sequences", f"{seq:02d}", "velodyne")
+        os.makedirs(d)
+        for i in range(n):
+            depth, _, _ = synthetic_scene_depth(rng, KITTI_H, KITTI_W)
+            yaw = (np.arange(KITTI_W) + rng.uniform(0.05, 0.95, (KITTI_H, KITTI_W))) \
+                * (2 * np.pi / KITTI_W)
+            pts = np.stack([depth * np.cos(pitch) * np.cos(yaw),
+                            depth * np.cos(pitch) * np.sin(yaw), depth * np.sin(pitch),
+                            rng.uniform(size=depth.shape)], -1)[depth > 0]
+            pts.astype(np.float32).tofile(os.path.join(d, f"{i:06d}.bin"))
+
+
+def kitti_path(work: str) -> str:
+    """``python -m dusty_gan_torch.cli.process_kitti`` as a user runs it, on a
+    pool of every core and inline (``--n-jobs 1``), and the numpy projection
+    inline, each on its own copy of the tree: every range image equal bit
+    for bit, the angle grid too inline and within 1e-7 rad on the pool
+    (float64 shard sums); scans a second of each (the CLI's wall includes
+    its interpreter's and its spawned workers' start), and ms a scan of one
+    projection in this process.  Returns the pooled tree's root."""
+    native_root = os.path.join(work, "kitti")
+    serial_root, numpy_root = native_root + "_serial", native_root + "_numpy"
+    write_velodyne_tree(native_root)
+    shutil.copytree(native_root, numpy_root)
+    shutil.copytree(native_root, serial_root)
+    n = sum(KITTI_SEQ_SCANS.values())
+    jobs = os.cpu_count() or 1
+    wall = {}
+    for name, root, n_jobs in (("pool", native_root, jobs), ("inline", serial_root, 1)):
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "dusty_gan_torch.cli.process_kitti",
+                        "--root-dir", root, "--n-jobs", str(n_jobs)], cwd=REPO, check=True,
+                       timeout=600)
+        wall[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    angles_np = preprocess.process_kitti_root(numpy_root, verbose=False, n_jobs=1, native=False)
+    wall["numpy_inline"] = time.perf_counter() - t0
+    angles = np.load(os.path.join(native_root, "angles.npy"))
+    if not np.array_equal(np.load(os.path.join(serial_root, "angles.npy")), angles_np):
+        raise AssertionError("the angle grids of the native and the numpy builds differ")
+    if not np.allclose(angles, angles_np, rtol=0, atol=1e-7):
+        raise AssertionError("the pooled angle grid left the inline one by > 1e-7 rad")
+    outs = sorted(glob.glob(os.path.join(native_root, "dusty-gan", "sequences", "*",
+                                         "velodyne", "*.npy")))
+    if len(outs) != n:
+        raise AssertionError(f"process_kitti wrote {len(outs)} range images of {n}")
+    for path in outs:
+        a = np.load(path)
+        if a.shape != (KITTI_H, KITTI_W, 4) or not all(
+                np.array_equal(a, np.load(path.replace(native_root, other)))
+                for other in (numpy_root, serial_root)):
+            raise AssertionError(f"native, serial and numpy range images differ: {path}")
+    pts = np.fromfile(glob.glob(os.path.join(native_root, "dataset", "sequences", "00",
+                                             "velodyne", "*.bin"))[0],
+                      np.float32).reshape(-1, 4)
+    per_scan = {}
+    for native in (True, False):
+        t0 = time.perf_counter()
+        for _ in range(5):
+            preprocess.project_scan(pts, KITTI_H, KITTI_W, native=native)
+        per_scan["native" if native else "numpy"] = (time.perf_counter() - t0) / 5 * 1e3
+    print("process_kitti:", json.dumps({
+        "scans": n, "points_per_scan": len(pts), "workers": jobs,
+        "wall_s": wall, "scans_per_s": {k: n / v for k, v in wall.items()},
+        "ms_per_scan_one_process": per_scan,
+        "native_equals_numpy": True}))
+    return native_root
+
+
+def points_to_depth_check(dev, kitti_root: str) -> None:
+    """Lidar.points_to_depth at 64x2048 (the processed tree's angle grid) on
+    P2D_POINTS points of a processed scan, card against CPU: the image,
+    validity and the gradient of a weighted sum for the points."""
+    angles = np.load(os.path.join(kitti_root, "angles.npy"))
+    scan = np.load(sorted(glob.glob(os.path.join(kitti_root, "dusty-gan", "sequences", "00",
+                                                 "velodyne", "*.npy")))[0])
+    xyz = scan[..., :3].reshape(-1, 3)
+    r = np.linalg.norm(xyz, axis=1)
+    xyz = xyz[(r > 0.9) & (r < 120.0)]
+    pick = np.random.RandomState(0).choice(len(xyz), P2D_POINTS, replace=False)
+    pts = torch.from_numpy((xyz[pick] / 120.0).astype(np.float32))[None]
+    wts = torch.from_numpy(np.random.RandomState(1).randn(1, KITTI_H, KITTI_W, 1)
+                           .astype(np.float32))
+    out = {}
+    for where in ("cuda", "cpu"):
+        d = dev if where == "cuda" else torch.device("cpu")
+        lidar = Lidar.from_angle_array(angles, (KITTI_H, KITTI_W), 0.9, 120.0, device=d)
+        x = pts.to(d).requires_grad_()
+        t0 = time.perf_counter()
+        depth, valid = lidar.points_to_depth(x)
+        (depth * wts.to(d)).sum().backward()
+        if where == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        with torch.no_grad():
+            px, py, pz = x[..., 0], x[..., 1], x[..., 2]
+            ids = lidar.nearest_angle(torch.atan2(pz, torch.sqrt(px ** 2 + py ** 2 + 1e-24)),
+                                      torch.atan2(py, px))
+        out[where] = (depth.detach().cpu(), valid.cpu(), x.grad.cpu(), ids.cpu(), ms)
+    (dc, vc, gc, ic, ms_card), (d0, v0, g0, i0, ms_cpu) = out["cuda"], out["cpu"]
+    moved = float((ic != i0).float().mean())
+    changed = float(((dc - d0).abs() > P2D_ATOL).float().mean())
+    grad_err = float((gc - g0).norm() / g0.norm())
+    print("points_to_depth card vs cpu:", json.dumps({
+        "shape": [KITTI_H, KITTI_W], "points": P2D_POINTS, "valid_pixels": int(v0.sum()),
+        "points_on_another_pixel": int((ic != i0).sum()), "pixels_changed_share": changed,
+        "valid_equal": bool(torch.equal(vc, v0)), "grad_rel_l2": grad_err,
+        "ms_forward_backward": {"cuda_first_call": ms_card, "cpu": ms_cpu},
+        "holds": {"moved_share": P2D_MOVED_SHARE, "atol": P2D_ATOL,
+                  "grad_rel_l2": P2D_GRAD_REL_L2}}))
+    if moved > P2D_MOVED_SHARE or changed > P2D_MOVED_SHARE or grad_err > P2D_GRAD_REL_L2:
+        raise AssertionError(f"points_to_depth card vs CPU: {moved} of the points moved, "
+                             f"{changed} of the pixels changed, gradient {grad_err}")
+    if not int(v0.sum()) > P2D_POINTS // 4:
+        raise AssertionError("points_to_depth filled too few pixels")
 
 
 def train_cfg(root: str, *extra):
@@ -1670,7 +1996,12 @@ def main(argv=None) -> int:
         emd_large_launches = emd_large_path(work, run)
         calibration_path(work, run, args.emd_num_test, dev)
         nn_launches, rec_clouds = reconstruction_path(work, run, args.num_step)
+        data_path(work, run)
         training = training_path(work, run)
+        device_cache_path(dev, work, run, training["dir"])
+        tune = tune_path(work, training["dir"])
+        kitti_root = kitti_path(work)
+        points_to_depth_check(dev, kitti_root)
         profile_train_step(dev, run["root"])
         train_step_card_vs_cpu(dev, run["root"])
         train_step_bf16(dev, run["root"])
@@ -1686,8 +2017,10 @@ def main(argv=None) -> int:
     entries[4]["launches"] = emd_launches["emd_pair"]
     entries[3]["device_path"]["launches"] = emd_large_launches["emd_block"]
     entries[0]["training"] = {"launches": training["launches"],
-                              **hold_training_blocks(training["blocks"])}
-    del training["blocks"]
+                              **hold_blocks(training["blocks"], "training validation")}
+    entries[0]["tune_tolerance"] = {"launches": tune["launches"],
+                                    **hold_blocks(tune["blocks"], "tune_tolerance")}
+    del training["blocks"], tune["blocks"]
     print(f"cd_block launches in one {args.num_test}-scan run: "
           f"{cd_launches // 2}; in one 5000-scan run: {protocol_launches()}")
     profile_inversion(dev, run)

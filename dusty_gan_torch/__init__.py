@@ -14,14 +14,18 @@ tensors and launches the kernel, or raises, for CUDA tensors.
 
 from __future__ import annotations
 
-import torch
-
 __version__ = "0.1.0"
 
+# torch is imported inside the functions: the preprocessing pool's spawned
+# workers import this package and need only numpy and the native library
 
-def resolve_device(device=None) -> torch.device:
-    """``None`` means ``cuda``.  Asking for CUDA without a visible GPU raises
-    instead of quietly running on the CPU; the CPU must be asked for."""
+
+def resolve_device(device=None):
+    """``None`` means ``cuda``; returns a ``torch.device``.  Asking for CUDA
+    without a visible GPU raises instead of quietly running on the CPU; the
+    CPU must be asked for."""
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -34,9 +38,11 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def synchronize(device: torch.device) -> None:
+def synchronize(device) -> None:
     """Wait for the device's queued work (a no-op on the CPU), so that a
     host clock around it measures the work and not its enqueue."""
+    import torch
+
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -45,5 +51,7 @@ def set_metric_precision() -> None:
     """Metric math runs in true f32: TF32 keeps ~3 decimal digits, which
     moves nearest-neighbour distances, SWD projections and the depth
     pipeline.  The JAX package pins the same for its metric path."""
+    import torch
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

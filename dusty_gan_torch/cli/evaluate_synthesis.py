@@ -177,32 +177,42 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None):
     batch_size = int(cfg.solver.batch_size)
 
     # ------------------------------------------------------------- reals
-    t = time.perf_counter()
+    # reals_load: the host's part (scans through the native pipeline,
+    # collated, or the cache file); reals_project: the device's (inverse
+    # depth, projection to points, FPS)
+    timings["reals_load"] = timings["reals_project"] = 0.0
     reals = {}
     for subset in ("train", "test"):
+        t = time.perf_counter()
         ds = define_dataset(cfg.dataset, phase=subset)
         cache_path = real_cache_path(ds, cfg.dataset.name, subset,
                                      args.num_points, REAL_TOL)
         if osp.exists(cache_path):
             with np.load(cache_path) as z:
                 reals[subset] = {"2d": z["d2"], "3d": z["d3"]}
+            timings["reals_load"] += time.perf_counter() - t
             print("loaded:", cache_path)
             continue
+        batches = [(b["depth"], b["mask"]) for b in Loader(ds, batch_size).epoch()]
+        timings["reals_load"] += time.perf_counter() - t
+        t = time.perf_counter()
         d2 = []
-        for batch in Loader(ds, batch_size).epoch():
-            depth = torch.from_numpy(batch["depth"]).to(device)
-            mask = torch.from_numpy(batch["mask"]).to(device)
+        for depth, mask in batches:
+            depth = torch.from_numpy(depth).to(device)
+            mask = torch.from_numpy(mask).to(device)
             inv = sigmoid_to_tanh(lidar.invert_depth(depth))
             d2.append(mask * inv + (1 - mask) * drop_const)
         d2 = torch.cat(d2)
         d3 = to_points(lidar, d2, REAL_TOL, args.num_points)
         reals[subset] = {"2d": d2.cpu().numpy(), "3d": d3.cpu().numpy()}
+        timings["reals_project"] += time.perf_counter() - t
+        t = time.perf_counter()
         os.makedirs(osp.dirname(cache_path), exist_ok=True)
         tmp = cache_path + f".tmp.{os.getpid()}.npz"
         np.savez(tmp, d2=reals[subset]["2d"], d3=reals[subset]["3d"])
         os.replace(tmp, cache_path)
+        timings["reals_load"] += time.perf_counter() - t
         print("cached:", cache_path)
-    timings["reals"] = time.perf_counter() - t
 
     if args.prepare_only:
         print("prepare-only: real-tensor caches ready; exiting")

@@ -14,10 +14,13 @@ Writes ``.hydra/config.yaml``, ``scalars.jsonl`` (every
 ``solver.checkpoint.save_stats`` iterations and at iteration 1, with
 ``perf/scans_per_sec``; ``score/*`` at every ``test``), and
 ``models/checkpoint_<images>.pth`` at every ``save_model`` and at the end.
-SIGTERM checkpoints at the next iteration boundary and returns.  Not yet
-ported, each raising: ``multihost``, ``preempt_sync``, ``profile_dir``,
-``cache_device=true``, ``steps_per_call>1``, ``transfer_dtype``; image
-logging (``save_image``) writes nothing.
+SIGTERM checkpoints at the next iteration boundary and returns.  The
+loop takes its batches from ``Trainer.device_iter`` (host batches copied
+ahead, or with ``cache_device=true`` index gathers from the
+device-resident train split; ``transfer_dtype`` narrows the host copy;
+``cache_dataset`` builds the resized cache).  Not yet ported, each
+raising: ``multihost``, ``preempt_sync``, ``profile_dir``,
+``steps_per_call>1``; image logging (``save_image``) writes nothing.
 """
 
 from __future__ import annotations
@@ -80,7 +83,8 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None) -> str:
     stop_requested = []
     prev_handler = signal.signal(signal.SIGTERM, lambda signum, frame: stop_requested.append(signum))
     t_last = t_start = time.perf_counter()
-    it = trainer.loader.iter_from(trainer.start_iteration)
+    i_last = trainer.start_iteration
+    it = trainer.device_iter()
     try:
         for i in range(trainer.start_iteration + 1, total_iteration + 1):
             if stop_requested:
@@ -92,8 +96,10 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None) -> str:
             if i % int(ckpt.save_stats) == 0 or i == 1:
                 values = {k: float(v) for k, v in scalars.items()}  # waits for the step
                 now = time.perf_counter()
-                sps = imgs_per_iter * int(ckpt.save_stats) / (now - t_last) if i > 1 else 0.0
-                t_last = now
+                # over the iterations since the last log (a resumed run's
+                # first window is shorter than save_stats)
+                sps = imgs_per_iter * (i - i_last) / (now - t_last) if i > 1 else 0.0
+                t_last, i_last = now, i
                 logger.scalars(values, step_imgs)
                 if sps:
                     logger.scalar("perf/scans_per_sec", sps, step_imgs)

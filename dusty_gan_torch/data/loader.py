@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 
@@ -68,6 +68,25 @@ class Loader:
         end = len(idx) - (len(idx) % b) if self.drop_last else len(idx)
         for i in range(start_batch * b, end, b):
             yield idx[i:i + b]
+
+    def index_stream(self, start_iteration: int = 0) -> Iterator[Tuple[int, np.ndarray]]:
+        """Infinite ``(epoch, batch indices)`` stream positioned as
+        ``iter_from(start_iteration)``, without loading an item (the device
+        cache ships indices instead of batches)."""
+        epoch, start = divmod(int(start_iteration), max(len(self), 1))
+        while True:
+            yield from ((epoch, idx) for idx in self.index_batches(epoch, start_batch=start))
+            epoch, start = epoch + 1, 0
+
+    def flip_bits(self, epoch: int, idx: np.ndarray) -> np.ndarray:
+        """The flip bits that ``_collate`` would draw for these items: the
+        first draw of ``default_rng([seed, epoch, i])`` above 0.5.  Reads
+        ``self.seed`` at call time (a resumed trainer sets it)."""
+        if not getattr(self.dataset, "flip", False):
+            return np.zeros(len(idx), dtype=bool)
+        return np.fromiter(
+            (np.random.default_rng([self.seed, int(epoch), int(i)]).random() > 0.5
+             for i in idx), dtype=bool, count=len(idx))
 
     def epoch(self, epoch: int = 0, start_batch: int = 0) -> Iterator[Dict[str, np.ndarray]]:
         """One epoch of batches from batch ``start_batch`` on (the skipped

@@ -46,8 +46,14 @@ def fetch_reals(batch: Dict[str, torch.Tensor], lidar, drop_const: float):
     """{"depth": (B, 1, H, W) in [0, 1]} (+ optional "mask") -> (normalised
     inverse depth in [-1, 1] with dropped pixels at ``drop_const``, mask).
     An absent mask is ``depth > 0``: the dataset zeroes every invalid pixel
-    and valid depths are strictly positive."""
-    depth = batch["depth"].float()
+    and valid depths are strictly positive.  A depth sent in a narrow wire
+    dtype (``transfer_dtype``) is upcast to float32 first, so the mask is
+    derived from the upcast values: only depths that round to zero in
+    float16 (< 2^-25 normalised, ~3.6 um above min_depth at KITTI scale)
+    could leave it."""
+    depth = batch["depth"]
+    if depth.dtype != torch.float32:
+        depth = depth.float()
     mask = batch["mask"].to(depth.dtype) if "mask" in batch else (depth > 0).to(depth.dtype)
     inv = sigmoid_to_tanh(lidar.invert_depth(depth))
     return mask * inv + (1.0 - mask) * drop_const, mask

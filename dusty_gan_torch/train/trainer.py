@@ -17,10 +17,21 @@ G_ema in eval mode generates fresh samples; the scores are SWD, JSD,
 COV/MMD/1-NNA over three pairwise Chamfer matrices (kernel K1,
 ``cd_block``, for CUDA tensors) and the drop-mask marginals
 ``drop_rate/fake``, ``drop_rate/real`` and ``drop_row_l1``.
+
+Data: with ``cache_dataset`` (default true) the train and val splits read
+the resized cache under ``<dataset.root>/cache`` (built at the first run,
+shared with the JAX package).  ``device_iter`` feeds the step: by default
+the loader's host batches, copied from pinned memory without a host wait
+(``transfer_dtype`` narrows the copy, e.g. to float16); with
+``cache_device=true`` the whole resized train split lives on the device
+and each step sends only its indices (``data/device_cache.py``).  Either
+way the batch stream is a function of the iteration alone.  Not yet
+ported: ``steps_per_call>1``.
 """
 
 from __future__ import annotations
 
+import collections
 import os.path as osp
 from typing import Dict, Optional, Tuple
 
@@ -30,6 +41,7 @@ import torch
 from dusty_gan_torch import synchronize
 from dusty_gan_torch.core.dtypes import policy_from_cfg
 from dusty_gan_torch.data.datasets import define_dataset
+from dusty_gan_torch.data.device_cache import DeviceDatasetCache
 from dusty_gan_torch.data.loader import Loader
 from dusty_gan_torch.geometry.lidar import Lidar, tanh_to_sigmoid
 from dusty_gan_torch.metrics.cov_mmd_1nna import compute_cov_mmd_1nna
@@ -55,19 +67,25 @@ def derived_seed(seed: int, stream: int, i: int) -> int:
     return ((seed & 0x7FFFFFFF) << 32) | low
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not yet ported to dusty_gan_torch; use "
-                              "dusty_gan_tpu.cli.train for it")
-
-
 def check_ported(cfg) -> None:
-    """Raise for the JAX trainer's opt-in modes that the port lacks."""
-    if cfg.get("cache_device"):
-        _not_ported("cache_device=true (the device-resident dataset cache)")
+    """Raise for the JAX trainer's opt-in mode that the port lacks."""
     if int(cfg.get("steps_per_call") or 0) > 1:
-        _not_ported("steps_per_call>1 (scan-chunk training)")
-    if cfg.get("transfer_dtype"):
-        _not_ported("transfer_dtype (a narrow host-to-device wire dtype)")
+        raise NotImplementedError(
+            "steps_per_call>1 (scan-chunk training) is not yet ported to "
+            "dusty_gan_torch; use dusty_gan_tpu.cli.train for it")
+
+
+def wire_dtype(name) -> Optional[torch.dtype]:
+    """``transfer_dtype`` -> the torch dtype host batches cross in (None:
+    float32, as loaded).  Floating dtypes only: an integer dtype would
+    truncate normalised depths to 0."""
+    if not name:
+        return None
+    dt = getattr(torch, str(name), None)
+    if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
+        raise ValueError(f"transfer_dtype must be a floating dtype, got {name!r} (an "
+                         "integer dtype would truncate normalized depths to 0)")
+    return dt
 
 
 class Trainer:
@@ -77,6 +95,7 @@ class Trainer:
         self.device = device
         self.policy = policy_from_cfg(bool(cfg.get("enable_amp", True)))
         self.seed = int(cfg.get("seed") or 0)
+        self.transfer_dtype = wire_dtype(cfg.get("transfer_dtype"))
         cfg.model.gen.shape = list(cfg.dataset.shape)
         cfg.model.dis.shape = list(cfg.dataset.shape)
         self.shape = tuple(cfg.dataset.shape)
@@ -110,7 +129,9 @@ class Trainer:
             decay_gamma=float(decay.get("gamma", 1.0)),
             decay_step_size=int(decay.get("step_size", 1)))
 
-        self.dataset = define_dataset(cfg.dataset, phase="train")
+        cache_dir = (osp.join(cfg.dataset.root, "cache")
+                     if cfg.get("cache_dataset", True) else None)
+        self.dataset = define_dataset(cfg.dataset, phase="train", cache_dir=cache_dir)
         if len(self.dataset) < self.batch_size:
             raise ValueError(
                 f"train split has {len(self.dataset)} scans but one step needs "
@@ -118,8 +139,10 @@ class Trainer:
                 f"data (root={cfg.dataset.root})")
         self.loader = Loader(self.dataset, self.batch_size, shuffle=True, drop_last=True,
                              seed=self.seed, keys=("depth",))
-        self.val_dataset = define_dataset(cfg.dataset, phase="val")
+        self.val_dataset = define_dataset(cfg.dataset, phase="val", cache_dir=cache_dir)
         self.val_loader = Loader(self.val_dataset, self.batch_size)
+        self.device_cache = (DeviceDatasetCache(self.loader, device, keys=("depth",))
+                             if cfg.get("cache_device") else None)
 
         self.augment_policy = tuple(solver.augment or [])
         self.train_step = TrainStep(
@@ -141,22 +164,52 @@ class Trainer:
         self._val_cache: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
 
         if verbose:
+            if self.device_cache is not None:
+                print(f"device cache: {self.device_cache.n} scans"
+                      f"{' and their flips' if self.device_cache.flip else ''}, "
+                      f"{self.device_cache.nbytes / 1e6:.1f} MB")
             n = sum(p.numel() for p in self.state.G.parameters())
             print(f"device: {device}, G params: {n:,}, batch {self.batch_size} x accum "
                   f"{self.num_accumulation}, ema decay {self.ema_decay:.6f}")
 
     # ------------------------------------------------------------------
     def to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """(B, H, W, 1) host arrays -> (B, 1, H, W) tensors on the device
-        (through pinned memory, without a host wait, on CUDA)."""
+        """(B, H, W, 1) host arrays -> (B, 1, H, W) tensors on the device, in
+        ``transfer_dtype`` when one is set (through pinned memory, without
+        a host wait, on CUDA)."""
         out = {}
         for k in ("depth", "mask"):
             if k in batch:
                 t = torch.from_numpy(np.ascontiguousarray(batch[k])).permute(0, 3, 1, 2)
+                if self.transfer_dtype is not None:
+                    t = t.to(self.transfer_dtype)
                 if self.device.type == "cuda":
                     t = t.pin_memory().to(self.device, non_blocking=True)
                 out[k] = t
         return out
+
+    def device_iter(self, lookahead: int = 2, start_iteration: Optional[int] = None):
+        """Infinite stream of device batches from ``start_iteration``
+        (default: the resume point).  The copies of the next ``lookahead``
+        batches are issued before the current one is handed out: pinned,
+        non-blocking copies on the current stream, which the host does not
+        wait for.  With the device cache only the indices cross."""
+        start = self.start_iteration if start_iteration is None else int(start_iteration)
+        q = collections.deque()
+        if self.device_cache is not None:
+            ix = self.loader.index_stream(start)
+            while True:
+                while len(q) < lookahead:
+                    q.append(self.device_cache.batch(*next(ix)))
+                yield q.popleft()
+        it = self.loader.iter_from(start)
+        try:
+            while True:
+                while len(q) < lookahead:
+                    q.append(self.to_device(next(it)))
+                yield q.popleft()
+        finally:
+            it.close()
 
     def draws(self, i: int):
         """Every draw of iteration ``i``."""

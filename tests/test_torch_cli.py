@@ -176,14 +176,17 @@ def test_unknown_metric_raises(run, metrics):
 
 
 def test_port_never_imports_jax():
-    """Import every module of the port and chip_smoke.py in a fresh
-    interpreter: neither JAX nor the JAX package may be loaded."""
+    """Import every module of the port and chip_smoke.py, and build and load
+    the native data library, in a fresh interpreter: neither JAX nor the JAX
+    package may be loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import dusty_gan_torch\n"
         "for m in pkgutil.walk_packages(dusty_gan_torch.__path__, 'dusty_gan_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "from dusty_gan_torch.data import native\n"
+        "native.load()\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'dusty_gan_tpu'))\n"
         "print(len([k for k in sys.modules if k.startswith('dusty_gan_torch')]), bad)\n"
