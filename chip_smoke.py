@@ -69,12 +69,31 @@
    script writes, native against numpy bit for bit, scans a second.  (e)
    ``Lidar.points_to_depth`` at 64x2048 on 16,384 points of a processed
    scan, card against CPU, image and gradient.
-6. Checks the scores (every key, finite) and, on small inputs, the card's
+6. Trains through CUDA-graph chunks (``steps_per_call``): (a) graph
+   against eager at full width (DUSty-II, batch 32, R1, DiffAugment, the
+   device cache), under bf16 and under float32: three eager trainers and
+   one in chunks of 4 from one seed for 17 iterations (a chunk of 1, then
+   the CLI's schedule from iteration 2: 3, 4, 4, 4, 1), eager against
+   eager, then graph against its nearest eager run after iterations 1 and
+   4 (the JAX package's state envelope) and on the scalars at the end,
+   each bound the larger of the JAX one and twice the eager runs' spread;
+   the replays must cover every chunked iteration; (b) ms a step for K = 1 (eager), 2, 4, 8, 16
+   by CUDA events over 64 iterations, capture seconds, peak memory, the
+   host's launches a step outside the graphs, and device busy time and
+   idle share from torch.profiler; (c) ``cli.train ... cache_device=true
+   steps_per_call=4`` at full width for 48 iterations with one validation
+   on K1 (its blocks held against the plain version), and a chunk run
+   resumed from a per-step checkpoint at iteration 21 (first chunk 3),
+   held to the uninterrupted chunk run at iteration 24 and on its final
+   G_ema.  (d) Training run 2 passes ``profile_dir=``: its Chrome trace
+   and summary, with the step's device kernels by name.
+7. Checks the scores (every key, finite) and, on small inputs, the card's
    scores, pairwise EMD matrices, generator output and inversion against
    the CPU, and one
    inversion step's bf16 gradient for z against float32 on the card.
-7. Prints a JSON line of per-kernel numbers (K1's with its training-path
-   launches under ``training`` and its tolerance-tuning launches under
+8. Prints a JSON line of per-kernel numbers (K1's with its training-path
+   launches under ``training``, its chunk-mode CLI's under
+   ``training_chunks`` and its tolerance-tuning launches under
    ``tune_tolerance``), the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -87,6 +106,7 @@ from __future__ import annotations
 import argparse
 import copy
 import csv
+import gc
 import glob
 import json
 import math
@@ -135,6 +155,7 @@ from dusty_gan_torch.utils.calibration import (  # noqa: E402
 from dusty_gan_torch.train.state import create_train_state  # noqa: E402
 from dusty_gan_torch.train.step import TrainStep, sample_draws  # noqa: E402
 from dusty_gan_torch.train.trainer import Trainer  # noqa: E402
+from dusty_gan_torch.utils import profiling  # noqa: E402
 from dusty_gan_torch.utils.setup import make_eval_generator, make_fixed_noise  # noqa: E402
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3, FP32 outside the
@@ -1383,12 +1404,15 @@ def training_path(work: str, run: dict) -> dict:
 
     mid = os.path.join(dir1, "models", f"checkpoint_{TRAIN_SAVE * TRAIN_BATCH:010d}.pth")
     t2 = {}
+    prof_dir = os.path.join(work, "profile")
     t0 = time.perf_counter()
     train_cli.main(train_overrides(root, dir2, TRAIN_ITERS, f"resume={mid}",
-                                   f"solver.checkpoint.test={10 * TRAIN_ITERS}"), timings=t2)
+                                   f"solver.checkpoint.test={10 * TRAIN_ITERS}",
+                                   f"profile_dir={prof_dir}"), timings=t2)
     wall2 = time.perf_counter() - t0
 
     hold_resume(dir1, dir2, "resumed")
+    profile_dir_check(prof_dir)
     rows1 = logged(dir1)
     scores = {k: v for r in rows1.values() for k, v in r.items() if k.startswith("score/")}
     if not scores:
@@ -1404,30 +1428,50 @@ def training_path(work: str, run: dict) -> dict:
             "validation_s": t1["validation_s"], "dir": dir1, "sps": sps}
 
 
-def hold_resume(dir1: str, dir2: str, name: str) -> None:
-    """Run 2 (``dir2``), resumed from run 1's checkpoint at TRAIN_SAVE, held
-    to run 1: the losses of its first iteration and its final G_ema."""
+def hold_resume(dir1: str, dir2: str, name: str, resumed_at: int = TRAIN_SAVE,
+                first_logged: int = TRAIN_SAVE + 1, final_iteration: int = TRAIN_ITERS,
+                rtol: float = RESUME_SCALAR_RTOL, atol: float = RESUME_SCALAR_ATOL) -> None:
+    """Run 2 (``dir2``), resumed at iteration ``resumed_at`` from a
+    checkpoint of run 1's, held to run 1: the losses of the first iteration
+    both logged after it (within ``rtol``, ``atol``) and its final G_ema."""
     rows1, rows2 = logged(dir1), logged(dir2)
-    first = (TRAIN_SAVE + 1) * TRAIN_BATCH
+    first = first_logged * TRAIN_BATCH
     a, b = rows1[first], rows2[first]
     if set(a) != set(b) or not all(math.isfinite(v) for r in (rows1, rows2)
                                    for row in r.values() for v in row.values()):
         raise AssertionError(f"{name}: logged scalars {sorted(a)} vs {sorted(b)}")
-    worst = max(abs(a[k] - b[k]) / (RESUME_SCALAR_ATOL + RESUME_SCALAR_RTOL * abs(a[k]))
-                for k in a if k.startswith("loss/"))
-    final = f"checkpoint_{TRAIN_ITERS * TRAIN_BATCH:010d}.pth"
+    worst = max(abs(a[k] - b[k]) / (atol + rtol * abs(a[k])) for k in a if k.startswith("loss/"))
+    final = f"checkpoint_{final_iteration * TRAIN_BATCH:010d}.pth"
     ema1 = torch.load(os.path.join(dir1, "models", final), weights_only=True)["G_ema"]
     ema2 = torch.load(os.path.join(dir2, "models", final), weights_only=True)["G_ema"]
     ema_err = rel_l2(ema2, ema1)
-    print(f"training, {name} at iteration {TRAIN_SAVE}: iteration {TRAIN_SAVE + 1}'s "
-          f"losses within {worst:.3f} of their hold (rtol {RESUME_SCALAR_RTOL}, atol "
-          f"{RESUME_SCALAR_ATOL}); final G_ema relative L2 {ema_err:.3e} (held at "
+    print(f"training, {name} at iteration {resumed_at}: iteration {first_logged}'s "
+          f"losses within {worst:.3f} of their hold (rtol {rtol}, atol {atol}); final "
+          f"G_ema relative L2 {ema_err:.3e} (held at "
           f"{RESUME_EMA_REL_L2})")
-    print(f"training iteration {TRAIN_SAVE + 1} run 1:", json.dumps(a, sort_keys=True))
-    print(f"training iteration {TRAIN_SAVE + 1} {name}:", json.dumps(b, sort_keys=True))
+    print(f"training iteration {first_logged} run 1:", json.dumps(a, sort_keys=True))
+    print(f"training iteration {first_logged} {name}:", json.dumps(b, sort_keys=True))
     if worst > 1.0 or ema_err > RESUME_EMA_REL_L2:
         raise AssertionError(f"the {name} run left run 1: losses {worst}x their hold, "
                              f"G_ema {ema_err}")
+
+
+def profile_dir_check(prof_dir: str) -> None:
+    """``profile_dir=`` on a per-step CLI run: one Chrome trace, and its
+    summary (``utils/profiling.py``) with the step's device kernels by
+    name."""
+    traces = glob.glob(os.path.join(prof_dir, "*.pt.trace.json"))
+    summary = profiling.summarize_trace(prof_dir, steps=4)
+    if len(traces) != 1 or summary is None:
+        raise AssertionError(f"profile_dir: traces {traces}, summary {summary}")
+    cats = {r["category"]: r for r in summary["by_category"]}
+    if "kernel" not in cats or not summary["top_ops"]:
+        raise AssertionError(f"profile_dir: no device kernel in the summary: {cats}")
+    print("profile_dir:", json.dumps({
+        "trace": os.path.basename(traces[0]), "trace_mb": os.path.getsize(traces[0]) / 1e6,
+        "total_ms_per_step": summary["total_ms_per_step"],
+        "num_op_events": summary["num_op_events"], "by_category": summary["by_category"],
+        "top_ops": summary["top_ops"][:8]}))
 
 
 def hold_blocks(blocks: list, path: str) -> dict:
@@ -1948,6 +1992,317 @@ def train_step_bf16(dev, root: str) -> None:
         raise AssertionError("D's bf16 logit does not see the far field")
 
 
+# ---------------------------------------------------------------------------
+# steps_per_call: CUDA-graph chunks of the train step
+# ---------------------------------------------------------------------------
+
+# (a) graph against eager: iteration 1 as a chunk of 1, then the CLI's
+# schedule from iteration 2 at K = 4: chunks of 3, 4, 4, 4, 1; three eager
+# runs measure the card's own run-to-run spread
+GRAPH_K, GRAPH_ITERS, GRAPH_EAGER_RUNS = 4, 17, 3
+# the JAX package's chunk-against-step envelopes (tests/test_device_cache.py):
+# after one iteration, in every float leaf of >= 10,000 elements at most
+# 0.1% of the elements beyond 1e-4 + 2e-3 |b|, and every element within
+# 2.2 lr (Adam's first update is +-lr wherever a gradient's sign sits
+# below the two programs' rounding); the scalars after the run within
+# rtol 5e-2 / atol 5e-3.  Those bounds were set on the CPU, whose
+# reductions repeat; the card's eager step does not (cuDNN's and the
+# reflection pad's backward reduce with atomics), and two eager runs part
+# by as much (measured on an H100: 0.19-0.23% of a leaf's elements after
+# one bf16 step, up to 8.4x the scalar hold after 17).  So the graph is
+# held against its nearest eager run, each bound the larger of the JAX one
+# and twice the largest spread between the eager runs.
+GRAPH_ATOL, GRAPH_RTOL, GRAPH_LOOSE_SHARE, GRAPH_LR_BOUND = 1e-4, 2e-3, 1e-3, 2.2 * 2e-3
+GRAPH_SCALAR_RTOL, GRAPH_SCALAR_ATOL, GRAPH_SPREAD_FACTOR = 5e-2, 5e-3, 2.0
+# (b) ms a step for each K (1: the eager per-step path), over CHUNK_TIMED
+# iterations after a warm-up that captures; the profiler over CHUNK_PROFILED
+CHUNK_KS, CHUNK_TIMED, CHUNK_PROFILED = (1, 2, 4, 8, 16), 64, 16
+# (c) the CLI in chunk mode: K = 4, 48 iterations, stats every 8, one
+# validation at 40, checkpoints every 20; a per-step run from its
+# iteration-20 checkpoint to 21, and a chunk run resumed there (first
+# chunk: 3 iterations), held to the uninterrupted chunk run at iteration 24
+CLI_K, CLI_ITERS, CLI_STATS, CLI_TEST, CLI_SAVE, CLI_RESUME = 4, 48, 8, 40, 20, 21
+RUNTIME_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                    "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def chunk_schedule(start: int, total: int, k_max: int) -> list:
+    """The CLI's chunks from iteration ``start``: the first realigns to the
+    K-grid."""
+    out, i = [], start
+    while i < total:
+        k = min(k_max - i % k_max, total - i)
+        out.append(list(range(i + 1, i + k + 1)))
+        i += k
+    return out
+
+
+def run_chunk(trainer, ix, iters):
+    rows = np.stack([trainer.device_cache.rows(*next(ix)) for _ in iters])
+    return trainer.step_chunk(iters, rows)
+
+
+def state_tensors(trainer) -> dict:
+    st = trainer.state
+    out = {f"{net}.{k}": v for net in ("G", "D", "G_ema")
+           for k, v in getattr(st, net).state_dict().items()}
+    for name, opt, module in (("opt_G", st.opt_G, st.G), ("opt_D", st.opt_D, st.D)):
+        for n, p in module.named_parameters():
+            for k in ("exp_avg", "exp_avg_sq", "step"):
+                out[f"{name}.{n}.{k}"] = opt.state[p][k]
+    out["pl_ema"] = st.pl_ema
+    return out
+
+
+def envelope(got: dict, want: dict) -> dict:
+    """The JAX chunk-against-step envelope of ``got`` against ``want``:
+    the largest share of loose elements in a leaf of >= 10,000, the largest
+    difference, and whether both hold at the JAX bounds."""
+    worst_share, worst_diff, equal = 0.0, 0.0, True
+    for k, b in want.items():
+        a, b = got[k].float().to(b.device), b.float()
+        diff = (a - b).abs()
+        equal &= bool(torch.equal(a, b))
+        if b.numel() >= 10_000:
+            worst_share = max(worst_share,
+                              float((diff > GRAPH_ATOL + GRAPH_RTOL * b.abs()).float().mean()))
+        worst_diff = max(worst_diff, float(diff.max()))
+    return {"bit_equal": equal, "largest_loose_share": worst_share,
+            "largest_abs_diff": worst_diff,
+            "jax_envelope_holds": worst_share < GRAPH_LOOSE_SHARE and worst_diff <= GRAPH_LR_BOUND}
+
+
+def graph_against_eager(dev, root: str, amp: bool) -> dict:
+    """Phase (a): full-width DUSty-II, batch 32, R1, DiffAugment, the
+    device cache, under bf16 (``amp``) or float32; GRAPH_EAGER_RUNS eager
+    trainers and one in chunks of K = 4 from one seed, GRAPH_ITERS
+    iterations each.  Eager against eager, then graph against its nearest
+    eager run: the JAX package's state envelope after iteration 1 and
+    after the first chunk of 3 (iteration 4), the scalars against the JAX
+    hold at the end; each held to the larger of the JAX bound and twice the
+    eager runs' spread.  The replays must have run every chunked
+    iteration."""
+    cfg = lambda *e: train_cfg(root, f"enable_amp={str(amp).lower()}",  # noqa: E731
+                               "cache_device=true", *e)
+    eager = [Trainer(cfg(), dev, verbose=False) for _ in range(GRAPH_EAGER_RUNS)]
+    graphed = Trainer(cfg(f"steps_per_call={GRAPH_K}"), dev, verbose=False)
+    its = [t.device_iter() for t in eager]
+    ix = graphed.loader.index_stream(0)
+    chunks = [[1]] + chunk_schedule(1, GRAPH_ITERS, GRAPH_K)
+    pairs = [(a, b) for a in range(GRAPH_EAGER_RUNS) for b in range(a + 1, GRAPH_EAGER_RUNS)]
+    out = {"policy": "bf16" if amp else "float32", "chunks": [len(c) for c in chunks]}
+    failures = []
+
+    def hold_state(name: str, bound_diff: bool) -> None:
+        """The envelope of each eager pair and of the graph against each
+        eager run; the graph's nearest run held to the larger of the JAX
+        bounds and twice the eager spread."""
+        torch.cuda.synchronize()
+        states = [state_tensors(t) for t in eager]
+        graph = state_tensors(graphed)
+        eager_pairs = [envelope(states[b], states[a]) for a, b in pairs]
+        to_eager = [envelope(graph, st) for st in states]
+        share = min(e["largest_loose_share"] for e in to_eager)
+        bound = max(GRAPH_LOOSE_SHARE, GRAPH_SPREAD_FACTOR * max(
+            e["largest_loose_share"] for e in eager_pairs))
+        diff = min(e["largest_abs_diff"] for e in to_eager)
+        out[name] = {"eager_vs_eager": eager_pairs, "graph_vs_eager": to_eager,
+                     "graph_loose_share": share, "loose_share_bound": bound,
+                     "graph_largest_abs_diff": diff}
+        if share > bound or (bound_diff and diff > GRAPH_LR_BOUND):
+            failures.append(f"{name}: {out[name]}")
+
+    for n, iters in enumerate(chunks):
+        sc_graph = run_chunk(graphed, ix, iters)
+        for i in iters:
+            sc_eager = [t.step(i, next(it)) for t, it in zip(eager, its)]
+        if n < 2:
+            hold_state(f"iteration_{iters[-1]}", bound_diff=n == 0)
+    sc = [{k: float(v) for k, v in s.items()} for s in sc_eager]
+    a = {k: float(v) for k, v in sc_graph.items()}
+    ratio = lambda x, y: max(abs(x[k] - y[k]) / (GRAPH_SCALAR_ATOL  # noqa: E731
+                                                 + GRAPH_SCALAR_RTOL * abs(y[k])) for k in y)
+    eager_ratio = max(ratio(sc[b], sc[a]) for a, b in pairs)
+    graph_ratio = min(ratio(a, e) for e in sc)
+    scalar_bound = max(1.0, GRAPH_SPREAD_FACTOR * eager_ratio)
+    runner = graphed.chunks
+    out.update({"scalars_eager_vs_eager_within_hold": eager_ratio,
+                "scalars_graph_vs_nearest_eager_within_hold": graph_ratio,
+                "scalars_bound_in_holds": scalar_bound, "scalars_graph": a,
+                "scalars_eager": sc, "replays": runner.replays,
+                "replayed_iterations": runner.replayed_iterations,
+                "chunked_iterations": sum(len(ch) for ch in chunks),
+                "capture_s": runner.capture_s})
+    print("graph against eager:", json.dumps(out))
+    if (set(a) != set(sc[0]) or not all(math.isfinite(v) for v in a.values())
+            or graph_ratio > scalar_bound):
+        failures.append(f"scalars {graph_ratio}x the hold (bound {scalar_bound})")
+    if failures:
+        raise AssertionError(f"graph against eager ({out['policy']}): " + "; ".join(failures))
+    if (runner.replays != len(chunks) or runner.replayed_iterations != GRAPH_ITERS
+            or sorted(runner.graphs) != [1, 3, 4]):
+        raise AssertionError(f"{runner.replays} replays of {runner.replayed_iterations} "
+                             f"iterations, graphs {sorted(runner.graphs)}, for {GRAPH_ITERS} "
+                             "chunked iterations")
+    return out
+
+
+def device_profile(prof, iterations: int, wall_ms: float) -> dict:
+    """Device busy time, idle share and op counts a step from a torch.profiler
+    run over ``iterations`` iterations, and the host's launches a step
+    (kernels, copies and memsets the host issued itself, outside any
+    graph)."""
+    from torch.autograd import DeviceType
+
+    busy_us, device_ops, host_launches, graph_launches = 0.0, 0, 0, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            busy_us += e.time_range.elapsed_us()
+            device_ops += 1
+        elif e.name in RUNTIME_LAUNCHES:
+            host_launches += 1
+        elif e.name == "cudaGraphLaunch":
+            graph_launches += 1
+    return {"device_busy_ms_per_step": busy_us / 1e3 / iterations,
+            "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
+            "device_ops_per_step": device_ops / iterations,
+            "host_launches_per_step": host_launches / iterations,
+            "graph_launches": graph_launches, "profiled_wall_ms_per_step": wall_ms / iterations}
+
+
+def time_chunk_size(dev, root: str, K: int, eager_ops) -> dict:
+    """ms a step and the rest of phase (b) at one K."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(train_cfg(root, "enable_amp=true", "cache_device=true",
+                                f"steps_per_call={K if K > 1 else 0}"), dev, verbose=False)
+    if K == 1:
+        it = trainer.device_iter()
+        run = lambda iters: [trainer.step(i, next(it)) for i in iters]  # noqa: E731
+    else:
+        ix = trainer.loader.index_stream(0)
+        run = lambda iters: run_chunk(trainer, ix, iters)  # noqa: E731
+    i = 0
+
+    def chunks(n: int) -> None:
+        nonlocal i
+        for _ in range(n):
+            run(list(range(i + 1, i + K + 1)))
+            i += K
+
+    chunks(max(1, 4 // K))  # warm-up: the capture, or 4 eager steps
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    chunks(CHUNK_TIMED // K)
+    stop.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / CHUNK_TIMED
+    ms = start.elapsed_time(stop) / CHUNK_TIMED
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        chunks(CHUNK_PROFILED // K)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    p = device_profile(prof, CHUNK_PROFILED, wall_ms)
+    row = {"K": K, "iterations": CHUNK_TIMED, "ms_per_step": ms,
+           "host_clock_ms_per_step": host_ms, "scans_per_sec": TRAIN_BATCH / ms * 1e3,
+           "peak_memory_gb": peak_gb, **p,
+           "device_idle_share_of_unprofiled_step": 1.0 - p["device_busy_ms_per_step"] / ms}
+    # the graphs' kernels are in the trace when it holds about as many
+    # device ops a step as the eager step launches
+    if eager_ops is not None and p["device_ops_per_step"] < 0.5 * eager_ops:
+        row["device_busy_ms_per_step"] = row["device_idle_share"] = row[
+            "device_idle_share_of_unprofiled_step"] = (
+            f"not measured: the trace holds {p['device_ops_per_step']:.0f} device ops a "
+            f"step against the eager step's {eager_ops:.0f}; it misses the graphs' kernels")
+    if K > 1:
+        runner = trainer.chunks
+        row.update({"capture_s": runner.capture_s, "replays": runner.replays,
+                    "replayed_iterations": runner.replayed_iterations})
+        if runner.replayed_iterations != i:
+            raise AssertionError(f"K={K}: {runner.replayed_iterations} replayed iterations "
+                                 f"of {i}")
+    print("steps_per_call:", json.dumps(row))
+    return row
+
+
+def time_chunks(dev, root: str) -> list:
+    """Phase (b): ms a step for each K in CHUNK_KS (K = 1: the eager
+    per-step path), by CUDA events over CHUNK_TIMED iterations on the
+    device cache after a warm-up (the capture for K > 1); capture seconds,
+    peak memory, the host's launches a step outside the graphs, and device
+    busy time and idle share from torch.profiler where the trace shows the
+    graphs' kernels."""
+    rows = []
+    for K in CHUNK_KS:
+        rows.append(time_chunk_size(dev, root, K, rows[0]["device_ops_per_step"]
+                                    if rows else None))
+        gc.collect()  # a trainer and its chunk runner refer to each other
+        torch.cuda.empty_cache()
+    return rows
+
+
+def chunk_cli_path(work: str, run: dict) -> dict:
+    """Phase (c): ``cli.train ... cache_device=true steps_per_call=4`` at
+    full width for CLI_ITERS iterations, one validation on K1 (its blocks
+    held against the plain version), then a per-step run from its
+    checkpoint at CLI_SAVE to CLI_RESUME and a chunk run resumed from that
+    per-step checkpoint (first chunk 3), held to the uninterrupted chunk
+    run.  Returns K1's launches and blocks."""
+    root = run["root"]
+    d5, d6, d7 = (os.path.join(work, n) for n in ("chunks5", "per_step6", "chunks7"))
+    cadence = [f"solver.checkpoint.save_stats={CLI_STATS}", f"solver.checkpoint.test={CLI_TEST}",
+               f"solver.checkpoint.save_model={CLI_SAVE}", "cache_device=true"]
+    chunked = [*cadence, f"steps_per_call={CLI_K}"]
+    blocks = []
+
+    def recording_cd_block(rows, cols):
+        blocks.append((rows.clone(), cols.clone()))
+        return chamfer_cuda.cd_block(rows, cols)
+
+    reset_launches()
+    cov_mmd_1nna.cd_block = recording_cd_block
+    try:
+        t0 = time.perf_counter()
+        train_cli.main(train_overrides(root, d5, CLI_ITERS, *chunked))
+        wall5 = time.perf_counter() - t0
+    finally:
+        cov_mmd_1nna.cd_block = chamfer_cuda.cd_block
+    launches = launch_counts()
+    if launches["cd_block"] <= 0 or not blocks:
+        raise AssertionError(f"the chunk CLI's validation launched cd_block "
+                             f"{launches['cd_block']} times")
+    mid = os.path.join(d5, "models", f"checkpoint_{CLI_SAVE * TRAIN_BATCH:010d}.pth")
+    train_cli.main(train_overrides(root, d6, CLI_RESUME, *cadence, f"resume={mid}",
+                                   f"solver.checkpoint.test={10 * CLI_ITERS}"))
+    per_step = os.path.join(d6, "models", f"checkpoint_{CLI_RESUME * TRAIN_BATCH:010d}.pth")
+    t0 = time.perf_counter()
+    train_cli.main(train_overrides(root, d7, CLI_ITERS, *chunked, f"resume={per_step}",
+                                   f"solver.checkpoint.test={10 * CLI_ITERS}"))
+    wall7 = time.perf_counter() - t0
+    first = CLI_RESUME + CLI_K - CLI_RESUME % CLI_K
+    rows7 = logged(d7)
+    if min(rows7) != first * TRAIN_BATCH:
+        raise AssertionError(f"the chunk run resumed at {CLI_RESUME} first logged image step "
+                             f"{min(rows7)}, not iteration {first}'s")
+    # iteration 21 of run 7 ran eagerly and 22-24 in a graph, where run 5
+    # graphed all four: a chunk-against-step trajectory, held as the JAX
+    # package holds one (tests/test_device_cache.py), at its first log
+    hold_resume(d5, d7, "chunks resumed from a per-step checkpoint", CLI_RESUME, first,
+                CLI_ITERS, GRAPH_SCALAR_RTOL, GRAPH_SCALAR_ATOL)
+    sps = {step // TRAIN_BATCH: r["perf/scans_per_sec"] for step, r in logged(d5).items()
+           if "perf/scans_per_sec" in r}
+    print("chunk CLI:", json.dumps({"K": CLI_K, "iterations": CLI_ITERS, "run5_s": wall5,
+                                    "run7_s": wall7, "validation_cd_block_launches":
+                                    launches["cd_block"],
+                                    "cli_scans_per_sec_by_iteration": sps}))
+    return {"launches": launches["cd_block"], "blocks": blocks}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--num-test", type=int, default=NUM_TEST,
@@ -2005,6 +2360,12 @@ def main(argv=None) -> int:
         profile_train_step(dev, run["root"])
         train_step_card_vs_cpu(dev, run["root"])
         train_step_bf16(dev, run["root"])
+        for amp in (True, False):
+            graph_against_eager(dev, run["root"], amp)
+            gc.collect()  # the phase's trainers, and their graphs' memory pools
+            torch.cuda.empty_cache()
+        time_chunks(dev, run["root"])
+        chunk_training = chunk_cli_path(work, run)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for i, (x, y) in enumerate(rec_clouds):
@@ -2020,7 +2381,10 @@ def main(argv=None) -> int:
                               **hold_blocks(training["blocks"], "training validation")}
     entries[0]["tune_tolerance"] = {"launches": tune["launches"],
                                     **hold_blocks(tune["blocks"], "tune_tolerance")}
-    del training["blocks"], tune["blocks"]
+    entries[0]["training_chunks"] = {"launches": chunk_training["launches"],
+                                     **hold_blocks(chunk_training["blocks"],
+                                                   "chunk-mode training validation")}
+    del training["blocks"], tune["blocks"], chunk_training["blocks"]
     print(f"cd_block launches in one {args.num_test}-scan run: "
           f"{cd_launches // 2}; in one 5000-scan run: {protocol_launches()}")
     profile_inversion(dev, run)

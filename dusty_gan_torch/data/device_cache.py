@@ -14,6 +14,11 @@ permutations, epoch cycling and resume position) and the flip bits from
 ``Loader.flip_bits`` (a replay of the per-item streams), and the rows are
 the items ``dataset.item`` serves, so the batches equal the host path's
 bit for bit and a run resumes across a switch of ``cache_device``.
+
+A CUDA-graph chunk of k iterations (``steps_per_call``) takes its (k, B)
+rows in one pinned, non-blocking copy into a static buffer
+(``upload_rows``), and its captured steps gather from that buffer
+(``gather``).
 """
 
 from __future__ import annotations
@@ -61,9 +66,20 @@ class DeviceDatasetCache:
             rows = rows + self.n * self.loader.flip_bits(epoch, idx).astype(np.int64)
         return rows
 
+    def upload_rows(self, rows: np.ndarray, out: torch.Tensor) -> None:
+        """Host rows (any shape) into the device tensor ``out`` of that
+        shape: from pinned memory without a host wait on CUDA."""
+        host = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.int64))
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        out.copy_(host, non_blocking=True)
+
+    def gather(self, rows: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """{key: (B, C, H, W)} rows ``rows`` (B,) of the device arrays."""
+        return {k: v.index_select(0, rows) for k, v in self._data.items()}
+
     def batch(self, epoch: int, idx: np.ndarray) -> Dict[str, torch.Tensor]:
         """{key: (B, C, H, W)} for the loader's batch ``idx`` of ``epoch``."""
-        rows = torch.from_numpy(self.rows(epoch, idx))
-        if self.device.type == "cuda":
-            rows = rows.pin_memory().to(self.device, non_blocking=True)
-        return {k: v.index_select(0, rows) for k, v in self._data.items()}
+        rows = torch.empty(len(idx), dtype=torch.int64, device=self.device)
+        self.upload_rows(self.rows(epoch, idx), rows)
+        return self.gather(rows)

@@ -10,6 +10,12 @@ uninterrupted run.  The JAX package imports the file
 (``train_state_from_torch``) and writes it
 (``save_reference_checkpoint``); the port resumes from either.  Writes go
 to a temporary file renamed into place.
+
+A run trained in CUDA-graph chunks keeps Adam in its capturable mode
+(``train/state.py::make_capturable``); its file is written as a per-step
+run's (``capturable`` off, the step counts on the CPU), so that either
+mode, and the JAX package, resumes from it.  Loading is in place, before
+any capture.
 """
 
 from __future__ import annotations
@@ -38,14 +44,20 @@ def _cpu(obj):
     return obj
 
 
+def _optimizer_state_dict(optimizer: torch.optim.Optimizer) -> dict:
+    sd = optimizer.state_dict()
+    sd["param_groups"] = [{**g, "capturable": False} for g in sd["param_groups"]]
+    return sd
+
+
 def save_checkpoint(path: str, state: TrainState, seed: int) -> str:
     payload = _cpu({
         "step": int(state.step),
         "G": state.G.state_dict(),
         "D": state.D.state_dict(),
         "G_ema": state.G_ema.state_dict(),
-        "optim_G": state.opt_G.state_dict(),
-        "optim_D": state.opt_D.state_dict(),
+        "optim_G": _optimizer_state_dict(state.opt_G),
+        "optim_D": _optimizer_state_dict(state.opt_D),
         "pl_ema": state.pl_ema,
         "seed": int(seed),
     })
@@ -67,8 +79,8 @@ def restore_checkpoint(path: str, state: TrainState) -> Optional[int]:
     state.opt_G.load_state_dict(ckpt["optim_G"])
     state.opt_D.load_state_dict(ckpt["optim_D"])
     pl = ckpt.get("pl_ema")
-    state.pl_ema = torch.as_tensor(0.0 if pl is None else pl, dtype=torch.float32).reshape(
-        ()).to(state.pl_ema.device)
+    state.pl_ema.copy_(torch.as_tensor(0.0 if pl is None else pl,
+                                       dtype=torch.float32).reshape(()))
     state.step = int(ckpt["step"])
     seed = ckpt.get("seed")
     return None if seed is None else int(seed)

@@ -8,6 +8,13 @@ updates, ``lr * gamma ** (n // step_size)`` for the update after n
 others, optax's staircase ``exponential_decay`` in the JAX package.  It is
 computed from the optimizer's own update count before each update, so a
 resumed run (whose Adam state carries the count) continues the schedule.
+
+CUDA-graph chunks (``train/graphs.py``) cannot read that count: it lives
+on the card there (``make_capturable``: Adam's ``capturable`` mode, whose
+update reads its step counter and a tensor learning rate in device
+memory), and a host read would synchronise inside the capture.  They
+pass each update's learning rate instead (``scheduled_step(..., lr=)``),
+computed by the same schedule from the count the host tracks.
 """
 
 from __future__ import annotations
@@ -43,11 +50,32 @@ def updates_done(optimizer: torch.optim.Optimizer) -> int:
     return 0
 
 
-def scheduled_step(optimizer: torch.optim.Optimizer, schedule: LRSchedule) -> None:
-    lr = schedule.at(updates_done(optimizer))
+def scheduled_step(optimizer: torch.optim.Optimizer, schedule: LRSchedule,
+                   lr=None) -> None:
+    """One update at the schedule's rate, or at ``lr`` (a float, or a 0-d
+    device tensor that a captured update reads at replay)."""
+    if lr is None:
+        lr = schedule.at(updates_done(optimizer))
     for group in optimizer.param_groups:
         group["lr"] = lr
     optimizer.step()
+
+
+def make_capturable(optimizer: torch.optim.Adam) -> None:
+    """Switch Adam to its capturable update, which a CUDA graph can hold:
+    the step counter moves to the parameter's device, and a parameter
+    without state gets the state a first update would create (zero
+    moments, count 0), so that no capture allocates or zeroes it."""
+    for group in optimizer.param_groups:
+        group["capturable"] = True
+        for p in group["params"]:
+            state = optimizer.state[p]
+            if not state:
+                state["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+                state["exp_avg"] = torch.zeros_like(p)
+                state["exp_avg_sq"] = torch.zeros_like(p)
+            else:
+                state["step"] = state["step"].to(p.device, torch.float32)
 
 
 @dataclasses.dataclass

@@ -19,6 +19,12 @@ Every random draw of one iteration is taken up front into ``RoundDraws``
 (``sample_draws``, from one ``torch.Generator``), so the step itself is a
 function of the state, the batch and the draws; a test passes the JAX
 package's draws instead.
+
+The step is graph-safe, so that ``train/graphs.py`` can capture it: no
+host read of a device value, and the state is updated in place (the
+parameters, the optimizer state, G_ema and ``pl_ema``); ``lr`` passes
+each update's learning rate where the optimizer's count lives on the
+card.
 """
 
 from __future__ import annotations
@@ -197,7 +203,9 @@ class TrainStep:
         (loss / self.A if self.A > 1 else loss).backward()
 
     def __call__(self, state: TrainState, batch: Dict[str, torch.Tensor],
-                 draws: List[RoundDraws]) -> Dict[str, torch.Tensor]:
+                 draws: List[RoundDraws], lr=None) -> Dict[str, torch.Tensor]:
+        """``lr``: None (each optimizer's schedule at its update count) or
+        the (D, G) learning rates of this update."""
         if len(draws) != self.A:
             raise ValueError(f"{len(draws)} rounds of draws for {self.A} rounds")
         G, D = state.G, state.D
@@ -212,7 +220,7 @@ class TrainStep:
             loss, scalars = self._d_round(D, xs_real[r], xs_fake[r], d)
             self._backward(loss)
             d_scalars.append({k: v.detach() for k, v in scalars.items()})
-        scheduled_step(state.opt_D, state.schedule_D)
+        scheduled_step(state.opt_D, state.schedule_D, None if lr is None else lr[0])
 
         # G phase against the updated D; D's parameters take no gradient
         state.opt_G.zero_grad(set_to_none=True)
@@ -225,9 +233,10 @@ class TrainStep:
                 g_scalars.append({k: v.detach() for k, v in scalars.items()})
         finally:
             D.requires_grad_(True)
-        scheduled_step(state.opt_G, state.schedule_G)
+        scheduled_step(state.opt_G, state.schedule_G, None if lr is None else lr[1])
 
         ema_update(state.G_ema, G, self.ema_decay)
-        state.pl_ema = pl_ema.detach()
+        if pl_ema is not state.pl_ema:
+            state.pl_ema.copy_(pl_ema)
         state.step += self.batch_size
         return {**_mean_scalars(d_scalars), **_mean_scalars(g_scalars)}

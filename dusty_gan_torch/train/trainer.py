@@ -1,8 +1,9 @@
 """Trainer (``dusty_gan_tpu/train/trainer.py``): config -> models,
 optimizers, datasets, loader and train state on one device; ``step(i,
-batch)`` runs iteration i; ``validation`` scores G_ema; ``save`` writes a
-reference-format checkpoint; ``cfg.resume`` continues from one (the port's,
-or the JAX package's ``.pth`` export).
+batch)`` runs iteration i; ``step_chunk(iters, rows)`` runs consecutive
+iterations in one call (``steps_per_call``); ``validation`` scores G_ema;
+``save`` writes a reference-format checkpoint; ``cfg.resume`` continues
+from one (the port's, or the JAX package's ``.pth`` export).
 
 Randomness: the weights are initialised from ``seed``; iteration i draws
 everything it needs (latents, Gumbel noise, DiffAugment, path-length
@@ -25,8 +26,14 @@ the loader's host batches, copied from pinned memory without a host wait
 (``transfer_dtype`` narrows the copy, e.g. to float16); with
 ``cache_device=true`` the whole resized train split lives on the device
 and each step sends only its indices (``data/device_cache.py``).  Either
-way the batch stream is a function of the iteration alone.  Not yet
-ported: ``steps_per_call>1``.
+way the batch stream is a function of the iteration alone.
+
+Chunks (``steps_per_call=K``, K > 1, which needs ``cache_device=true``):
+``step_chunk`` runs k consecutive iterations on their device-cache rows
+(``train/graphs.py``): on CUDA through one captured CUDA graph per chunk
+length, with each iteration's draws made eagerly from its own generator
+and its learning rate from the schedule; on the CPU eagerly through the
+same buffers.  The batches and draws are the per-step path's.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ from dusty_gan_torch.models.dusty import DUSty1, DUSty2
 from dusty_gan_torch.models.factory import define_D, define_G
 from dusty_gan_torch.train.checkpoint import (checkpoint_name, restore_checkpoint,
                                               save_checkpoint)
+from dusty_gan_torch.train.graphs import ChunkRunner
 from dusty_gan_torch.train.state import create_train_state
 from dusty_gan_torch.train.step import TrainStep, fetch_reals, sample_draws
 
@@ -65,14 +73,6 @@ def derived_seed(seed: int, stream: int, i: int) -> int:
     bits carry the seed again for CUDA generators."""
     low = (seed * 0x9E3779B1 + stream * 0x85EBCA77 + i) & 0xFFFFFFFF
     return ((seed & 0x7FFFFFFF) << 32) | low
-
-
-def check_ported(cfg) -> None:
-    """Raise for the JAX trainer's opt-in mode that the port lacks."""
-    if int(cfg.get("steps_per_call") or 0) > 1:
-        raise NotImplementedError(
-            "steps_per_call>1 (scan-chunk training) is not yet ported to "
-            "dusty_gan_torch; use dusty_gan_tpu.cli.train for it")
 
 
 def wire_dtype(name) -> Optional[torch.dtype]:
@@ -90,7 +90,11 @@ def wire_dtype(name) -> Optional[torch.dtype]:
 
 class Trainer:
     def __init__(self, cfg, device: torch.device, verbose: bool = True):
-        check_ported(cfg)
+        self.steps_per_call = int(cfg.get("steps_per_call") or 0)
+        if self.steps_per_call > 1 and not cfg.get("cache_device"):
+            raise ValueError(
+                "steps_per_call needs cache_device=true (the scan body "
+                "gathers batches from the device-resident dataset)")
         self.cfg = cfg
         self.device = device
         self.policy = policy_from_cfg(bool(cfg.get("enable_amp", True)))
@@ -162,6 +166,8 @@ class Trainer:
             if verbose:
                 print(f"resumed from {cfg.resume} at iteration {self.start_iteration}")
         self._val_cache: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self.chunks = (ChunkRunner(self, self.steps_per_call) if self.steps_per_call > 1
+                       else None)
 
         if verbose:
             if self.device_cache is not None:
@@ -226,6 +232,15 @@ class Trainer:
         if isinstance(batch["depth"], np.ndarray):
             batch = self.to_device(batch)
         return self.train_step(self.state, batch, self.draws(i))
+
+    def step_chunk(self, iters, rows: np.ndarray, draws=None) -> Dict[str, torch.Tensor]:
+        """Consecutive iterations ``iters`` (1-based) in one call: ``rows``
+        (k, B) holds each one's device-cache rows (``device_cache.rows``),
+        ``draws`` k lists of RoundDraws (default: ``draws(i)``; a test
+        passes the JAX package's).  Returns the last iteration's scalars."""
+        if self.chunks is None:
+            raise ValueError("step_chunk needs steps_per_call > 1")
+        return self.chunks.run(iters, rows, draws)
 
     # ------------------------------------------------------------------
     def _inv_to_points(self, inv_nhwc: torch.Tensor) -> torch.Tensor:

@@ -2,13 +2,21 @@
 writes its config, scalars (loss/D/*, score/*) and reference-format
 checkpoints; a run resumed from a mid-run checkpoint ends bit-identical to
 the uninterrupted run; the CLI refuses to run without a GPU unless
-device=cpu; each not-yet-ported key raises.  Across frameworks: the JAX
+device=cpu; each not-yet-ported key raises.  Chunk mode
+(``steps_per_call``): it raises the JAX CLI's errors without
+``cache_device`` or when K does not divide a cadence; a chunk run logs
+the per-step run's scalars at the same steps (iteration 1 apart, which
+only the per-step loop logs) and ends on its checkpoint bit for bit; a
+chunk run resumed off the K-grid realigns; the per-step CLI and the JAX
+package resume from a chunk run's checkpoint.  ``profile_dir=`` writes a
+trace and prints its summary.  Across frameworks: the JAX
 package's ``train_state_from_torch`` loads the port's checkpoint and the
 port resumes from ``save_reference_checkpoint``'s, weights and Adam
 moments intact both ways.  The port's ``Loader`` yields the JAX
 ``Loader``'s batch stream bit for bit, flips and ``iter_from`` included."""
 
 import json
+import os
 import os.path as osp
 
 import jax
@@ -133,8 +141,7 @@ def test_refuses_cpu_fallback_without_gpu(root, tmp_path):
         main([*TINY, f"dataset.root={root}", f"run_dir={tmp_path}", "total_iterations=1"])
 
 
-@pytest.mark.parametrize("key", ["multihost=1", "preempt_sync=5", "profile_dir=prof",
-                                 "steps_per_call=2"])
+@pytest.mark.parametrize("key", ["multihost=1", "preempt_sync=5"])
 def test_unported_keys_raise(root, tmp_path, key):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         _run(root, str(tmp_path), "total_iterations=1", key)
@@ -159,7 +166,10 @@ def _sd(tree_sd):
 def test_jax_loads_the_ports_checkpoint(root, runs):
     """train_state_from_torch on the port's final checkpoint: weights,
     moments, count, pl_ema and step arrive unchanged."""
-    path = osp.join(runs["full"], "models", "checkpoint_0000000024.pth")
+    hold_jax_import(root, osp.join(runs["full"], "models", "checkpoint_0000000024.pth"))
+
+
+def hold_jax_import(root, path):
     ckpt = _load(path)
     _, tmpl, opt_g, opt_d = _jax_template(root)
     state = train_state_from_torch(path, ARCH, tmpl, opt_g, opt_d)
@@ -251,3 +261,106 @@ def test_loader_stream_equals_jax(root, flip):
         order = np.random.RandomState(5).permutation(10)
         assert any(not np.array_equal(batch["depth"][j], plain[int(i)]["depth"])
                    for j, i in enumerate(order))
+
+
+# ---------------------------------------------------------------------------
+# chunk mode (steps_per_call) and profile_dir=
+# ---------------------------------------------------------------------------
+
+def _rows(run_dir):
+    """scalars.jsonl as {image step: {tag: value}}."""
+    out = {}
+    with open(osp.join(run_dir, "scalars.jsonl")) as f:
+        for line in f:
+            row = json.loads(line)
+            row.pop("t")
+            out.setdefault(row.pop("step"), {}).update(row)
+    return out
+
+
+def _assert_same_checkpoint(a_path, b_path):
+    a, b = _load(a_path), _load(b_path)
+    assert a["step"] == b["step"]
+    for net in ("G", "D", "G_ema"):
+        for k, v in a[net].items():
+            assert torch.equal(v, b[net][k]), (net, k)
+    for opt in ("optim_G", "optim_D"):
+        assert a[opt]["param_groups"] == b[opt]["param_groups"]
+        for i, st in a[opt]["state"].items():
+            for k in ("exp_avg", "exp_avg_sq", "step"):
+                assert torch.equal(st[k], b[opt]["state"][i][k]), (opt, i, k)
+    assert torch.equal(a["pl_ema"], b["pl_ema"])
+
+
+CHUNK = ["cache_device=true", "steps_per_call=2", "solver.checkpoint.save_model=2"]
+NO_VALIDATION = "solver.checkpoint.test=100"
+
+
+@pytest.fixture(scope="module")
+def chunk_runs(root, runs, tmp_path_factory):
+    """A 6-iteration chunk run (K=2) beside ``runs``' per-step run; a chunk
+    run resumed from the per-step run's iteration-3 checkpoint (off the
+    K-grid); a per-step run resumed from the chunk run's iteration 2."""
+    base = tmp_path_factory.mktemp("chunk_runs")
+    chunk = _run(root, str(base / "chunk"), "total_iterations=6", *CHUNK)
+    off_grid = _run(root, str(base / "off_grid"), "total_iterations=6", *CHUNK,
+                    NO_VALIDATION, f"resume={runs['mid']}")
+    per_step = _run(root, str(base / "per_step"), "total_iterations=6", NO_VALIDATION,
+                    f"resume={osp.join(chunk, 'models', 'checkpoint_0000000008.pth')}")
+    return {"chunk": chunk, "off_grid": off_grid, "per_step": per_step}
+
+
+@pytest.mark.parametrize("extra, message", [
+    (["steps_per_call=2"], "steps_per_call needs cache_device=true"),
+    (["steps_per_call=4", "cache_device=true"],
+     r"steps_per_call=4 must divide solver.checkpoint.save_stats=2"),
+], ids=["without_cache_device", "cadence_not_divided"])
+def test_chunk_mode_raises_the_jax_errors(root, tmp_path, extra, message):
+    with pytest.raises(ValueError, match=message):
+        _run(root, str(tmp_path), "total_iterations=4", "solver.checkpoint.save_model=4",
+             *extra)
+
+
+def test_chunk_run_logs_and_saves_as_the_per_step_run(runs, chunk_runs):
+    full, chunk = _rows(runs["full"]), _rows(chunk_runs["chunk"])
+    assert set(chunk) == set(full) - {4}  # iteration 1: the per-step loop's log
+    for step, row in chunk.items():
+        assert set(row) == set(full[step]), step
+        for k, v in row.items():
+            if k.startswith("loss/") or k.startswith("score/"):
+                assert v == full[step][k], (step, k)
+    models = osp.join(chunk_runs["chunk"], "models")
+    assert sorted(os.listdir(models)) == [f"checkpoint_{4 * i:010d}.pth" for i in (2, 4, 6)]
+    final = "checkpoint_0000000024.pth"
+    _assert_same_checkpoint(osp.join(runs["full"], "models", final), osp.join(models, final))
+
+
+def test_chunk_resume_off_the_grid_realigns(runs, chunk_runs):
+    """From iteration 3 with K=2: a chunk of 1, then chunks ending on the
+    grid (logs and checkpoints at iterations 4 and 6)."""
+    rows = _rows(chunk_runs["off_grid"])
+    assert sorted(rows) == [16, 24] and all("loss/G/adversarial" in r for r in rows.values())
+    models = osp.join(chunk_runs["off_grid"], "models")
+    assert sorted(os.listdir(models)) == ["checkpoint_0000000016.pth",
+                                          "checkpoint_0000000024.pth"]
+    final = "checkpoint_0000000024.pth"
+    _assert_same_checkpoint(osp.join(runs["full"], "models", final), osp.join(models, final))
+
+
+def test_per_step_and_jax_resume_from_a_chunk_checkpoint(root, runs, chunk_runs):
+    final = "checkpoint_0000000024.pth"
+    _assert_same_checkpoint(osp.join(runs["full"], "models", final),
+                            osp.join(chunk_runs["per_step"], "models", final))
+    hold_jax_import(root, osp.join(chunk_runs["chunk"], "models", final))
+
+
+def test_profile_dir_writes_a_trace_and_prints_its_summary(root, tmp_path, capsys):
+    prof = tmp_path / "prof"
+    _run(root, str(tmp_path / "run"), "total_iterations=8", NO_VALIDATION,
+         f"profile_dir={prof}")
+    out = capsys.readouterr().out
+    traces = os.listdir(prof)
+    assert traces == ["train_4-8.pt.trace.json"]
+    assert f"profile trace written to {prof / traces[0]}" in out
+    assert "op time:" in out and "-- top ops --" in out
+    assert "aten::" in out.split("-- top ops --")[1]

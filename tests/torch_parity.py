@@ -231,11 +231,7 @@ def depth_batch(seed):
     return depth
 
 
-def recorded_gumbel(G, params, z, key):
-    """The Gumbel noise fields the JAX generator draws for latents ``z``
-    with Gumbel key ``key``, in the port's form (NCHW)."""
-    if not isinstance(G, (jdusty.DUSty1, jdusty.DUSty2)):
-        return None
+def _gumbel_fields(G, params, z, key):
     seen = []
     real = jdusty.logistic_noise
 
@@ -246,34 +242,58 @@ def recorded_gumbel(G, params, z, key):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jdusty, "logistic_noise", record)
         G.apply(params, z, train=True, rngs={"gumbel": key})
+    return seen
+
+
+_JIT_GUMBEL_FIELDS = {}  # id(G) -> (G, its compiled _gumbel_fields)
+
+
+def _jit_gumbel_fields(G, params, z, key):
+    held, fn = _JIT_GUMBEL_FIELDS.get(id(G), (None, None))
+    if held is not G:
+        fn = jax.jit(lambda *a: _gumbel_fields(G, *a))
+        _JIT_GUMBEL_FIELDS[id(G)] = (G, fn)
+    return fn(params, z, key)
+
+
+def recorded_gumbel(G, params, z, key, jit=False):
+    """The Gumbel noise fields the JAX generator draws for latents ``z``
+    with Gumbel key ``key``, in the port's form (NCHW); ``jit`` records
+    them from one compiled generator pass instead of op by op."""
+    if not isinstance(G, (jdusty.DUSty1, jdusty.DUSty2)):
+        return None
+    seen = (_jit_gumbel_fields if jit else _gumbel_fields)(G, params, z, key)
     seen = [nchw(np.asarray(s)) for s in seen]
     if isinstance(G, jdusty.DUSty2):
         return {"pixel": seen[0], "image": seen[1]}
     return seen[0]
 
 
-def jax_step_draws(key, G, params_G, A, b, relativistic, use_pl):
-    """The draws ``make_train_step`` takes from ``key``, as RoundDraws."""
+def jax_step_draws(key, G, params_G, A, b, relativistic, use_pl, in_ch=IN_CH,
+                   shape=(SH, SW), jit=False, policy=AUGMENT_POLICY):
+    """The draws ``make_train_step`` takes from ``key``, as RoundDraws
+    (``jit``: see ``recorded_gumbel``; ``policy``: the DiffAugment ops)."""
+    sh, sw = shape
     k_z, k_gum, k_augd, k_augg, k_pl = jax.random.split(key, 5)
-    zs = jax.random.normal(k_z, (A, b, IN_CH), jnp.float32)
+    zs = jax.random.normal(k_z, (A, b, in_ch), jnp.float32)
     gks, kds, kgs, pls = (jax.random.split(k, A) for k in (k_gum, k_augd, k_augg, k_pl))
-    aug = lambda k, n: jax_augment_draws(k, n, SH, SW, AUGMENT_POLICY)  # noqa: E731
+    aug = lambda k, n: jax_augment_draws(k, n, sh, sw, policy)  # noqa: E731
     out = []
     for r in range(A):
         d_real, d_fake = jax.random.split(kds[r])
         g_real, g_fake = jax.random.split(kgs[r])
         d = RoundDraws(z=torch.from_numpy(np.array(zs[r])),
-                       gumbel=recorded_gumbel(G, params_G, zs[r], gks[r]),
+                       gumbel=recorded_gumbel(G, params_G, zs[r], gks[r], jit),
                        aug_d_real=aug(d_real, b), aug_d_fake=aug(d_fake, b),
                        aug_g_fake=aug(g_fake, b),
                        aug_g_real=aug(g_real, b) if relativistic else None)
         if use_pl:
             b_pl = b // PL_BATCH_SHRINK
-            z_pl = jax.random.normal(jax.random.fold_in(pls[r], 0), (b_pl, IN_CH))
-            noise = jax.random.normal(jax.random.fold_in(pls[r], 1), (b_pl, SH, SW, 1),
-                                      jnp.float32) / np.sqrt(np.float32(SH * SW))
+            z_pl = jax.random.normal(jax.random.fold_in(pls[r], 0), (b_pl, in_ch))
+            noise = jax.random.normal(jax.random.fold_in(pls[r], 1), (b_pl, sh, sw, 1),
+                                      jnp.float32) / np.sqrt(np.float32(sh * sw))
             d.pl = (torch.from_numpy(np.array(z_pl)), nchw(np.asarray(noise)),
-                    recorded_gumbel(G, params_G, z_pl, gks[r]))
+                    recorded_gumbel(G, params_G, z_pl, gks[r], jit))
         out.append(d)
     return out
 
