@@ -36,7 +36,17 @@
    and tree: one batch of 512 test scans, ``--num-step`` inversion steps,
    Chamfer distance on the full 16,384-point clouds; checks the CSV, that
    the masked loss fell, counts the distances K2 formed on the path's own
-   clouds, and profiles a few inversion steps.
+   clouds, and profiles a few inversion steps.  Then the demo,
+   ``dusty_gan_torch.cli.demo``, on the same generator and tree:
+   ``synthesis`` of 8 slerp samples with a camera and the video (8 x 7
+   panels and one GIF or mp4); ``inversion`` of test scan 0 under
+   dropout, single-code (bf16, l1 + chamfer, 200 steps) and multi-code
+   (float32, 4 codes after up0, chamfer, 100 steps), each holding K3's
+   launches exactly (2 a step, and 2 for the single-code loop's final
+   loss; no other kernel) and the loss falling; K3 on the first step's
+   own (1, 16384) clouds against its plain version, distances bit for bit
+   and indices equal, timed with and without its layout step; and three
+   float32 multi-code steps card against CPU.
 5. Drives the training path, ``dusty_gan_torch.cli.train``, for the same
    full-width DUSty-II (and its discriminator, ch_base 64, ch_max 512) at
    batch 32 under bf16 with R1 and DiffAugment, on the tree's train split
@@ -86,7 +96,10 @@
    resumed from a per-step checkpoint at iteration 21 (first chunk 3),
    held to the uninterrupted chunk run at iteration 24 and on its final
    G_ema.  (d) Training run 2 passes ``profile_dir=``: its Chrome trace
-   and summary, with the step's device kernels by name.
+   and summary, with the step's device kernels by name.  (e) Image
+   logging: ``cli.train`` for 4 iterations with ``save_image`` 2, per step
+   and in chunks of 2, its images' tags, grid shapes and steps held to the
+   JAX CLI's, and the ms of one ``log_images`` call at batch 32.
 7. Checks the scores (every key, finite) and, on small inputs, the card's
    scores, pairwise EMD matrices, generator output and inversion against
    the CPU, and one
@@ -94,7 +107,9 @@
 8. Prints a JSON line of per-kernel numbers (K1's with its training-path
    launches under ``training``, its chunk-mode CLI's under
    ``training_chunks`` and its tolerance-tuning launches under
-   ``tune_tolerance``), the card line, and as the last line
+   ``tune_tolerance``; K3's from the demo, its launches, times and bound at
+   the demo's (1, 16384)^2, with the reconstruction shape's under
+   ``batch_512``), the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, with no result line, when there is no GPU or any phase
@@ -108,6 +123,7 @@ import copy
 import csv
 import gc
 import glob
+import importlib.util
 import json
 import math
 import os
@@ -127,6 +143,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 from dusty_gan_torch import kernels  # noqa: E402
+from dusty_gan_torch.cli import demo  # noqa: E402
 from dusty_gan_torch.cli import evaluate_reconstruction as er  # noqa: E402
 from dusty_gan_torch.cli import evaluate_synthesis as es  # noqa: E402
 from dusty_gan_torch.cli import process_kitti  # noqa: E402
@@ -153,9 +170,11 @@ from dusty_gan_torch.utils.inversion import (  # noqa: E402
 from dusty_gan_torch.utils.calibration import (  # noqa: E402
     calibrate_mask_threshold, drop_rate_2d)
 from dusty_gan_torch.train.state import create_train_state  # noqa: E402
+from dusty_gan_torch.train.logging import RunLogger  # noqa: E402
 from dusty_gan_torch.train.step import TrainStep, sample_draws  # noqa: E402
 from dusty_gan_torch.train.trainer import Trainer  # noqa: E402
 from dusty_gan_torch.utils import profiling  # noqa: E402
+from dusty_gan_torch.utils.postprocess import postprocess  # noqa: E402
 from dusty_gan_torch.utils.setup import make_eval_generator, make_fixed_noise  # noqa: E402
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3, FP32 outside the
@@ -626,9 +645,6 @@ def check_nn(dev) -> list:
     entries[1]["adversarial_ms"] = adv_argmin_ms
     entries[1]["index_mismatches"] = f"{totals['mismatches']} of {totals['compared']}"
     entries[1]["distances_not_bit_equal_to_plain"] = totals["not_bit_equal"]
-    entries[1]["note"] = ("no ported CLI path runs nn_argmin yet (its caller is the "
-                          "demo's chamfer inversion); launches are those of the "
-                          "reconstruction path, 0")
     if adv_ms > NN_ADVERSARIAL_MS:
         raise AssertionError(f"nn_dist on clouds no group of which can be culled takes "
                              f"{adv_ms:.3f} ms, over {NN_ADVERSARIAL_MS:.3f} ms")
@@ -2303,6 +2319,258 @@ def chunk_cli_path(work: str, run: dict) -> dict:
     return {"launches": launches["cd_block"], "blocks": blocks}
 
 
+# ---------------------------------------------------------------------------
+# the demo and image logging
+# ---------------------------------------------------------------------------
+
+# the demo at full width: 8 slerp samples with the video; single-code
+# inversion (bf16 generator, l1 + chamfer, dropout) for 200 steps and
+# multi-code (float32 generator, 4 codes after up0, chamfer) for 100, cut
+# from the CLI's 1000; K3 runs twice a step (both directions) and twice
+# more for the single-code loop's final loss
+DEMO_SAMPLES, DEMO_PANELS, DEMO_INVERSION_PANELS = 8, 7, 7
+DEMO_SINGLE_STEPS, DEMO_MULTI_STEPS, DEMO_CODES, DEMO_COMPOSE_LAYER = 200, 100, 4, 1
+DEMO_VIEW = ["--view-zoom", "40", "--view-yaw", "-45", "--view-pitch", "60"]
+# card against CPU: DEMO_CPU_STEPS float32 multi-code steps of the demo's
+# loss under --distance l2 (the CPU's plain nearest-neighbour version at
+# (1, 16384)^2 takes ~18 s a call, so the chamfer leg is held by K3's bit
+# equality on the demo's clouds and by check_chamfer_grad).  The gradients
+# at the start latent within DEMO_GRAD_REL_L2 in relative L2 (float32
+# convolutions in other orders); after the steps every z within atol
+# DEMO_Z_ATOL and every alpha within DEMO_ALPHA_ATOL but for at most
+# DEMO_FLIP_SHARE of them: Adam's first steps are +-lr (0.1 for z, 0.001
+# for alpha) wherever a gradient's sign sits below float32 rounding
+DEMO_CPU_STEPS = 3
+DEMO_GRAD_REL_L2, DEMO_Z_ATOL, DEMO_ALPHA_ATOL, DEMO_FLIP_SHARE = 1e-4, 1e-3, 1e-5, 5e-3
+# image logging: 4 iterations per step and in chunks of 2, save_image 2;
+# the JAX CLI's tags for DUSty-II
+IMAGE_ITERS, IMAGE_EVERY = 4, 2
+IMAGE_TAGS = {f"real/{t}" for t in ("inv", "normal", "bev", "mask")} | {
+    f"synth/{t}" for t in ("inv", "normal", "bev", "inv/orig", "confidence/pix",
+                           "confidence/img", "mask/pix", "mask/img")}
+
+
+def demo_args(run: dict, mode: str, out: str, *extra) -> list:
+    return [mode, "--model-path", run["pth"], "--config-path", run["cfg_path"], "--out", out,
+            *extra]
+
+
+def demo_inversion(work: str, run: dict, name: str, *extra):
+    """One ``demo inversion`` run on the card; returns its result, its
+    launch counts and its seconds.  K3's first two launches' clouds (the
+    first step's reference and generated clouds, both directions) are
+    recorded on the way to the kernel."""
+    seen = []
+
+    def recording_nn_argmin(x, y):
+        if len(seen) < 2:
+            seen.append((x.clone(), y.clone()))
+        return chamfer_cuda.nn_argmin(x, y)
+
+    out = os.path.join(work, f"demo_{name}")
+    reset_launches()
+    chamfer.nn_argmin = recording_nn_argmin
+    try:
+        t0 = time.perf_counter()
+        res = demo.main(demo_args(run, "inversion", out, *extra, "--device", "cuda"))
+        wall = time.perf_counter() - t0
+    finally:
+        chamfer.nn_argmin = chamfer_cuda.nn_argmin
+    launches = launch_counts()
+    pngs = glob.glob(os.path.join(out, "*.png"))
+    if len(pngs) != DEMO_INVERSION_PANELS:
+        raise AssertionError(f"demo inversion {name} wrote {len(pngs)} panels")
+    with torch.no_grad():
+        before, after = (float(res.loss(z).sum()) for z in (res.start, res.latent))
+    if not (math.isfinite(after) and after < before):
+        raise AssertionError(f"demo inversion {name}: the loss went {before} -> {after}")
+    res.clouds, res.before, res.after, res.wall = seen, before, after, wall
+    return res, launches
+
+
+def hold_demo_k3(clouds: list) -> dict:
+    """K3 against its plain version on the demo's own first-step clouds,
+    both directions: distances bit for bit, indices equal (the corrupted
+    scan's dropped pixels sit at the origin, thousands of ties).  Times
+    one launch with and without the layout step, the plain version, and
+    the bound on the distances it formed."""
+    out = {}
+    for name, (x, y) in zip(("ref_to_gen", "gen_to_ref"), clouds):
+        d, i = chamfer_cuda.nn_argmin(x, y)
+        want_d, want_i = chamfer_cuda.nn_reference(x, y, need_idx=True)
+        origin = int((x.abs().sum(-1) == 0).sum()), int((y.abs().sum(-1) == 0).sum())
+        if not (torch.equal(d, want_d) and torch.equal(i, want_i)):
+            raise AssertionError(
+                f"nn_argmin on the demo's clouds ({name}) differs from nn_reference: "
+                f"{int((d != want_d).sum())} distances, {int((i != want_i).sum())} indices")
+        ms = cuda_ms(lambda: chamfer_cuda.nn_argmin(x, y), iters=20)
+        lay = chamfer_cuda.nn_layout(x, y)
+        kernel_ms = cuda_ms(lambda: chamfer_cuda.nn_on_layout(lay, True), iters=20)
+        layout_ms = cuda_ms(lambda: chamfer_cuda.nn_layout(x, y), iters=20)
+        del lay
+        plain_ms = cuda_ms(lambda: chamfer_cuda.nn_reference(x, y, need_idx=True), iters=1)
+        _, _, p1, p2 = chamfer_cuda.nn_evaluated(x, y, True)
+        b, n, m = x.shape[0], x.shape[1], y.shape[1]
+        bound_ms, bound_by = nn_bound(b, n, m, p1 + p2)
+        out[name] = {"shape": f"({b},{n})x({b},{m}) launch", "points_at_origin": origin,
+                     "ms": ms, "kernel_only_ms": kernel_ms, "layout_ms": layout_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "evaluated_share": (p1 + p2) / (b * n * m), "max_abs_err": 0.0}
+        print(f"nn_argmin on the demo's clouds {name} ({b},{n})x({b},{m}), points at the "
+              f"origin {origin}: bit-equal to nn_reference, indices equal; {ms:.3f} ms a "
+              f"launch (layout {layout_ms:.3f} ms, kernel alone {kernel_ms:.3f} ms), plain "
+              f"{plain_ms:.3f} ms, bound on the distances formed {bound_ms:.4f} ms "
+              f"({bound_by}; {(p1 + p2) / (b * n * m):.4%} of brute force)")
+    return out
+
+
+def demo_card_vs_cpu(work: str, run: dict) -> None:
+    """DEMO_CPU_STEPS float32 multi-code steps of the demo CLI, --distance
+    l2, on the card and on the CPU from the same draws: the gradients at
+    the start latent, then z and alpha after the steps (see DEMO_*)."""
+    extra = ["--distance", "l2", "--corruption", "dropout", "--num-code", str(DEMO_CODES),
+             "--compose-layer", str(DEMO_COMPOSE_LAYER), "--num-step", str(DEMO_CPU_STEPS)]
+    res = {d: demo.main(demo_args(run, "inversion", os.path.join(work, f"demo_vs_{d}"),
+                                  *extra, "--device", d)) for d in ("cuda", "cpu")}
+    grads = {}
+    for d, r in res.items():
+        leaves = {k: v.detach().clone().requires_grad_(True) for k, v in r.start.items()}
+        g = torch.autograd.grad(r.loss(leaves).sum(), list(leaves.values()))
+        grads[d] = dict(zip(leaves, (t.cpu() for t in g)))
+    report = {}
+    for k in ("z", "alpha"):
+        rel = float((grads["cuda"][k] - grads["cpu"][k]).norm() / grads["cpu"][k].norm())
+        diff = (res["cuda"].latent[k].cpu() - res["cpu"].latent[k]).abs()
+        atol = DEMO_Z_ATOL if k == "z" else DEMO_ALPHA_ATOL
+        share = float((diff > atol).float().mean())
+        report[k] = {"grad_rel_l2": rel, "max_abs_err": float(diff.max()),
+                     f"share_beyond_{atol}": share}
+        if rel > DEMO_GRAD_REL_L2 or share > DEMO_FLIP_SHARE:
+            raise AssertionError(f"demo multi-code card vs cpu, {k}: gradient relative L2 "
+                                 f"{rel}, {share:.4%} of the entries beyond {atol}")
+    print(f"demo multi-code card vs cpu ({DEMO_CPU_STEPS} float32 steps, l2):",
+          json.dumps(report))
+
+
+def demo_path(work: str, run: dict) -> dict:
+    """The demo CLI at full width: synthesis (panels and video), single-code
+    and multi-code inversion with K3's launches counted exactly, K3 on
+    the demo's own clouds, and a multi-code run card against CPU.
+    Returns K3's launches and its entry numbers."""
+    out = os.path.join(work, "demo_synthesis")
+    reset_launches()
+    t0 = time.perf_counter()
+    res = demo.main(demo_args(run, "synthesis", out, "--num-samples", str(DEMO_SAMPLES),
+                              "--latent-type", "slerp", "--video", *DEMO_VIEW,
+                              "--device", "cuda"))
+    synth_s = time.perf_counter() - t0
+    pngs = glob.glob(os.path.join(out, "*.png"))
+    videos = glob.glob(os.path.join(out, "slerp.gif")) + glob.glob(os.path.join(out, "slerp.mp4"))
+    if len(res.names) != DEMO_PANELS or len(pngs) != DEMO_SAMPLES * DEMO_PANELS \
+            or len(videos) != 1:
+        raise AssertionError(f"demo synthesis: panels {res.names}, {len(pngs)} PNGs, "
+                             f"videos {videos}")
+    for name, p in res.panels.items():
+        if p.shape[0] != DEMO_SAMPLES or not np.isfinite(p).all() or p.min() < 0 or p.max() > 1:
+            raise AssertionError(f"demo synthesis panel {name}: {p.shape}, "
+                                 f"[{p.min()}, {p.max()}]")
+    if any(launch_counts().values()):
+        raise AssertionError(f"demo synthesis launched kernels: {launch_counts()}")
+    print(f"demo synthesis: {len(pngs)} panels and {os.path.basename(videos[0])} "
+          f"({os.path.getsize(videos[0])} bytes) in {synth_s:.2f} s")
+
+    single, l1 = demo_inversion(work, run, "single", "--distance", "l1,chamfer",
+                                "--corruption", "dropout", "--num-step", str(DEMO_SINGLE_STEPS),
+                                *DEMO_VIEW)
+    multi, l2 = demo_inversion(work, run, "multi", "--distance", "chamfer",
+                               "--num-code", str(DEMO_CODES),
+                               "--compose-layer", str(DEMO_COMPOSE_LAYER),
+                               "--num-step", str(DEMO_MULTI_STEPS))
+    launches = {}
+    for name, res_, got, want in (("single_code", single, l1, 2 * DEMO_SINGLE_STEPS + 2),
+                                  ("multi_code", multi, l2, 2 * DEMO_MULTI_STEPS)):
+        if got != {**{k: 0 for k in got}, "nn_argmin": want}:
+            raise AssertionError(f"demo inversion {name} launched {got}, expected nn_argmin "
+                                 f"{want} times and nothing else")
+        steps = DEMO_SINGLE_STEPS if name == "single_code" else DEMO_MULTI_STEPS
+        launches[name] = got["nn_argmin"]
+        print(f"demo inversion {name}:", json.dumps({
+            "steps": steps, "nn_argmin_launches": got["nn_argmin"], "run_s": res_.wall,
+            "ms_per_step": res_.inversion_s / steps * 1e3, "loss_before": res_.before,
+            "loss_after": res_.after}))
+    k3 = hold_demo_k3(single.clouds)
+    del single.clouds, multi.clouds
+    demo_card_vs_cpu(work, run)
+    return {"launches": launches, "k3": k3}
+
+
+def image_logging_path(work: str, run: dict, dev) -> None:
+    """cli.train at full width for IMAGE_ITERS iterations with save_image
+    IMAGE_EVERY, per step and in chunks of 2: RunLogger.image is wrapped
+    to record tags, grid shapes and image steps (TensorBoard may be absent
+    here, and the port adds no other sink); the tags must be the JAX CLI's,
+    real/* at image step 1 and synth/* at every save_image.  Then the ms of
+    one log_images call at batch 32, render and host copies included."""
+    seen = []
+    image = RunLogger.image
+
+    def recording_image(self, tag, img, step):
+        seen.append((tag, img.shape, step))
+        return image(self, tag, img, step)
+
+    cadence = [f"solver.checkpoint.save_image={IMAGE_EVERY}", "solver.checkpoint.save_stats=2",
+               f"solver.checkpoint.test={10 * IMAGE_ITERS}",
+               f"solver.checkpoint.save_model={10 * IMAGE_ITERS}"]
+    RunLogger.image = recording_image
+    try:
+        for mode, extra in (("per_step", []), ("chunks", ["cache_device=true",
+                                                          "steps_per_call=2"])):
+            seen.clear()
+            train_cli.main(train_overrides(run["root"], os.path.join(work, f"images_{mode}"),
+                                           IMAGE_ITERS, *cadence, *extra))
+            tags = {t for t, _, _ in seen}
+            synth_steps = {s for t, _, s in seen if t.startswith("synth/")}
+            real_steps = {s for t, _, s in seen if t.startswith("real/")}
+            want_steps = {i * TRAIN_BATCH for i in range(IMAGE_EVERY, IMAGE_ITERS + 1,
+                                                         IMAGE_EVERY)}
+            if tags != IMAGE_TAGS or real_steps != {1} or synth_steps != want_steps \
+                    or len(seen) != 4 + 8 * len(want_steps):
+                raise AssertionError(f"image logging ({mode}): tags {sorted(tags)}, real at "
+                                     f"{real_steps}, synth at {synth_steps}, {len(seen)} images")
+            grids = sorted({(t, tuple(shape)) for t, shape, _ in seen})
+            print(f"image logging ({mode}):", json.dumps(grids))
+    finally:
+        RunLogger.image = image
+
+    cfg = run["cfg"]
+    shape = tuple(cfg.dataset.shape)
+    G = copy.deepcopy(run["G"]).to(dev).requires_grad_(False)
+    gen = make_eval_generator(G, make_fixed_noise(G, shape, device=dev))
+    lidar = Lidar.from_angle_file(os.path.join(run["root"], "angles.npy"), shape,
+                                  cfg.dataset.min_depth, cfg.dataset.max_depth, device=dev)
+    with torch.no_grad():
+        out = postprocess(gen(torch.randn((TRAIN_BATCH, int(cfg.model.gen.in_ch)), device=dev)),
+                          lidar)
+        logger = RunLogger(os.path.join(work, "images_timed"))
+        sinks = "TensorBoard" if logger._tb is not None else "none"
+        times = {}
+        try:
+            for name in ("with_sinks", "without_sinks"):
+                if name == "without_sinks":  # render, colour maps, host copies and grids only
+                    logger.image = lambda tag, img, step: None
+                train_cli.log_images(logger, "synth", out, 0)  # warm-up
+                times[name] = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    train_cli.log_images(logger, "synth", out, 0)
+                    torch.cuda.synchronize()
+                    times[name].append((time.perf_counter() - t0) * 1e3)
+        finally:
+            logger.close()
+    print(f"log_images at batch {TRAIN_BATCH} (sinks: {sinks}), ms:", json.dumps(times))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--num-test", type=int, default=NUM_TEST,
@@ -2328,6 +2596,11 @@ def main(argv=None) -> int:
     print("card:", card)
     print("torch", torch.__version__, "cuda", torch.version.cuda,
           "device", torch.cuda.get_device_name(0))
+    # the demo's and image logging's optional packages on this machine (the
+    # port writes its PNGs and GIFs itself and has turbo built in)
+    print("optional packages:", json.dumps({
+        m: importlib.util.find_spec(m) is not None
+        for m in ("PIL", "cv2", "matplotlib", "tensorboard", "wandb", "streamlit")}))
     t = time.perf_counter()
     kernels.build()
     print(f"kernel build: {time.perf_counter() - t:.1f} s")
@@ -2351,6 +2624,7 @@ def main(argv=None) -> int:
         emd_large_launches = emd_large_path(work, run)
         calibration_path(work, run, args.emd_num_test, dev)
         nn_launches, rec_clouds = reconstruction_path(work, run, args.num_step)
+        demo_run = demo_path(work, run)
         data_path(work, run)
         training = training_path(work, run)
         device_cache_path(dev, work, run, training["dir"])
@@ -2366,6 +2640,7 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         time_chunks(dev, run["root"])
         chunk_training = chunk_cli_path(work, run)
+        image_logging_path(work, run, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for i, (x, y) in enumerate(rec_clouds):
@@ -2373,7 +2648,19 @@ def main(argv=None) -> int:
     del rec_clouds
     entries[0]["launches"] = cd_launches
     entries[1]["launches"] = nn_launches["nn_dist"]
-    entries[2]["launches"] = nn_launches["nn_argmin"]
+    # K3's main path is the demo's chamfer inversion: its launches, and its
+    # times and bound at the demo's (1, 16384)^2 shape; the timed
+    # reconstruction-shape launch's numbers move under "batch_512"
+    k3, demo_k3 = entries[2], demo_run["k3"]["ref_to_gen"]
+    k3["batch_512"] = {k: k3.pop(k) for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                              "bound_brute_force_ms", "layout_ms",
+                                              "kernel_only_ms", "adversarial_ms")}
+    k3.update({k: demo_k3[k] for k in ("shape", "ms", "kernel_only_ms", "layout_ms",
+                                       "plain_ms", "bound_ms", "bound_by")})
+    k3["demo_gen_to_ref"] = demo_run["k3"]["gen_to_ref"]
+    k3["launches"] = sum(demo_run["launches"].values())
+    k3["launches_by_path"] = {**{f"demo_{k}": v for k, v in demo_run["launches"].items()},
+                              "reconstruction": nn_launches["nn_argmin"]}
     entries[3]["launches"] = emd_launches["emd_block"]
     entries[4]["launches"] = emd_launches["emd_pair"]
     entries[3]["device_path"]["launches"] = emd_large_launches["emd_block"]

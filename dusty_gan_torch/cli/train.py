@@ -35,8 +35,14 @@ and prints its summary (``utils/profiling.py``), per step over four steps
 as the JAX CLI reckons it (the window holds five).  The chunk loop does
 not profile, as in the JAX CLI.
 
-Not yet ported, each raising: ``multihost``, ``preempt_sync``; image
-logging (``save_image``) writes nothing.
+Image logging (``log_images``), with the JAX CLI's tags, to TensorBoard
+and wandb (``RunLogger.image``): the first batch of epoch 0 as ``real/*``
+at the start (the loader's stream is a function of the position, so the
+batch stream does not move), and G's samples of ``Trainer.fixed_latent``
+as ``synth/*`` every ``save_image`` iterations, in the per-step loop and,
+in chunk mode, between chunks, never inside a capture or a replay.
+
+Not yet ported, each raising: ``multihost``, ``preempt_sync``.
 """
 
 from __future__ import annotations
@@ -49,17 +55,64 @@ import time
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from dusty_gan_torch import resolve_device, synchronize
 from dusty_gan_torch.config import compose, run_dir_for, save_config
+from dusty_gan_torch.geometry.render import render_point_clouds
 from dusty_gan_torch.train.logging import RunLogger
+from dusty_gan_torch.train.step import fetch_reals
 from dusty_gan_torch.train.trainer import Trainer
 from dusty_gan_torch.utils import profiling
+from dusty_gan_torch.utils.postprocess import colorize, postprocess
 
 CLI_KEYS = ("total_iterations", "run_dir", "config_dir", "validate_samples", "device",
             "profile_dir")
 NOT_PORTED = ("multihost", "preempt_sync")
 CHUNK_CADENCES = ("save_stats", "test", "save_image", "save_model")
+INV_SCALE = 1 / 0.4  # the logged inverse depth's visibility scale
+
+
+def log_images(logger: RunLogger, tag_prefix: str, out: Dict[str, torch.Tensor],
+               step: int) -> None:
+    """Image grids of a postprocessed output dict (B, H, W, C): the
+    coloured inverse depth, the normal map, the top-down BEV render, and
+    where present the depth before the drops, the confidence and the mask
+    (DUSty-II's channels as ``/pix`` and ``/img``)."""
+    def grid(tag: str, images: torch.Tensor) -> None:
+        logger.image_grid(f"{tag_prefix}/{tag}", images.cpu().numpy(), step)
+
+    grid("inv", colorize(out["depth"] * INV_SCALE))
+    grid("normal", out["normals"])
+    pts = out["points"].reshape(out["points"].shape[0], -1, 3)
+    grid("bev", render_point_clouds(pts, out["normals"].reshape(pts.shape),
+                                    t=torch.tensor([0.0, 0.0, 0.5])))
+    if "depth_orig" in out:
+        grid("inv/orig", colorize(out["depth_orig"] * INV_SCALE))
+    if "confidence" in out:
+        conf = out["confidence"]
+        if conf.shape[-1] == 2:
+            grid("confidence/pix", colorize(conf[..., :1]))
+            grid("confidence/img", colorize(conf[..., 1:]))
+        else:
+            grid("confidence", colorize(conf))
+    if "mask" in out:
+        mask = out["mask"]
+        for c in range(mask.shape[-1]):
+            sub = ("/pix" if c == 0 else "/img") if mask.shape[-1] == 2 else ""
+            grid(f"mask{sub}", mask[..., c:c + 1].expand(-1, -1, -1, 3))
+
+
+def log_real_images(trainer: Trainer, logger: RunLogger) -> None:
+    """The first batch of epoch 0, in float32 whatever ``transfer_dtype``,
+    as ``real/*`` at image step 1; the loader's batches are a function of
+    their position, so this does not move the training stream."""
+    depth = torch.from_numpy(next(trainer.loader.epoch(0))["depth"]).to(trainer.device)
+    inv, mask = fetch_reals({"depth": depth.permute(0, 3, 1, 2)}, trainer.lidar,
+                            float(trainer.cfg.model.gen.drop_const))
+    real = postprocess({"depth": inv.permute(0, 2, 3, 1), "mask": mask.permute(0, 2, 3, 1)},
+                       trainer.lidar)
+    log_images(logger, "real", real, 1)
 
 
 def main(argv=None, timings: Optional[Dict[str, float]] = None) -> str:
@@ -102,6 +155,7 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None) -> str:
     logger = RunLogger(run_dir, use_wandb=bool(cfg.get("publish_wandb")),
                        wandb_config=cfg.to_plain())
     print("run dir:", run_dir)
+    log_real_images(trainer, logger)
     total_iteration = int(int(cfg.solver.total_kimg) * 1000 / cfg.solver.batch_size)
     if "total_iterations" in extras:
         total_iteration = min(total_iteration, int(extras["total_iterations"]))
@@ -130,6 +184,8 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None) -> str:
             print(f"iter {i}/{total_iteration} "
                   + " ".join(f"{k.split('/')[-1]}={v:.4f}" for k, v in sorted(values.items()))
                   + (f" [{sps:.0f} scans/s]" if sps else ""))
+        if i % int(ckpt.save_image) == 0:
+            log_images(logger, "synth", trainer.generate(ema=False), step_imgs)
         if i % int(ckpt.test) == 0:
             t = time.perf_counter()
             scores = trainer.validation(max_samples=val_samples)

@@ -25,8 +25,6 @@ import ctypes.util
 import multiprocessing
 import os
 import os.path as osp
-import struct
-import zlib
 from concurrent.futures import ProcessPoolExecutor
 from functools import partial
 from glob import glob
@@ -34,6 +32,7 @@ from glob import glob
 import numpy as np
 
 from dusty_gan_torch.data import native as native_lib
+from dusty_gan_torch.utils.video import write_png
 
 TRAIN_SEQUENCES = (0, 1, 2, 3, 4, 5, 6, 7, 9, 10)
 # a point within this many columns of a column edge takes its yaw from the
@@ -108,23 +107,6 @@ LABEL_PALETTE = (
 )
 
 
-def write_paletted_png(path: str, image: np.ndarray, palette) -> None:
-    """(H, W) uint8 indices -> an 8-bit paletted PNG."""
-    h, w = image.shape
-
-    def chunk(kind: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + kind + data
-                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), image.astype(np.uint8)], axis=1)
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 3, 0, 0, 0))
-                + chunk(b"PLTE", bytes(v for rgb in palette for v in rgb))
-                + chunk(b"IDAT", zlib.compress(rows.tobytes()))
-                + chunk(b"IEND", b""))
-
-
 def process_bin_file(point_path: str, save_path: str, H: int = 64, W: int = 2048,
                      label_path: str = None, label_save_path: str = None,
                      native: bool = True) -> np.ndarray:
@@ -141,7 +123,7 @@ def process_bin_file(point_path: str, save_path: str, H: int = 64, W: int = 2048
         lab_img = np.zeros((H, W), labels.dtype)
         lab_img[gh[order], gw[order]] = labels[order]
         os.makedirs(osp.dirname(label_save_path), exist_ok=True)
-        write_paletted_png(label_save_path, lab_img, LABEL_PALETTE)
+        write_png(label_save_path, lab_img, LABEL_PALETTE)
     return proj
 
 

@@ -6,6 +6,8 @@ H padded with +inf) give 8 difference vectors; the cross product of each
 with the one two steps further round is a candidate normal.  "closest"
 keeps the pair whose two vectors are shortest, "mean" averages all 8.
 Points and normals are (B, H, W, 3).
+
+``euler_angles_to_rotation_matrix`` is the demo camera's rotation.
 """
 
 from __future__ import annotations
@@ -53,3 +55,17 @@ def xyz_to_normal(xyz: torch.Tensor, mode: str = "closest") -> torch.Tensor:
     normals = -estimate_surface_normal(xyz, mode=mode)
     normals = torch.nan_to_num(normals, nan=0.0, posinf=0.0, neginf=0.0)
     return torch.clamp((normals + 1.0) / 2.0, 0.0, 1.0)
+
+
+def euler_angles_to_rotation_matrix(theta) -> torch.Tensor:
+    """(3,) angles (x, y, z) in radians -> the float32 (3, 3) rotation
+    R = Rz(theta[2]) @ Ry(theta[1]) @ Rx(theta[0])."""
+    theta = torch.as_tensor(theta, dtype=torch.float32)
+    cx, sx = torch.cos(theta[0]), torch.sin(theta[0])
+    cy, sy = torch.cos(theta[1]), torch.sin(theta[1])
+    cz, sz = torch.cos(theta[2]), torch.sin(theta[2])
+    one, zero = torch.ones(()), torch.zeros(())
+    r_x = torch.stack([one, zero, zero, zero, cx, -sx, zero, sx, cx]).reshape(3, 3)
+    r_y = torch.stack([cy, zero, sy, zero, one, zero, -sy, zero, cy]).reshape(3, 3)
+    r_z = torch.stack([cz, -sz, zero, sz, cz, zero, zero, zero, one]).reshape(3, 3)
+    return r_z @ r_y @ r_x

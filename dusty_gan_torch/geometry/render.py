@@ -1,12 +1,15 @@
-"""Bilinear splatting of point values into an image
+"""Point-cloud rendering: bilinear splatting and a soft z-buffer
 (``dusty_gan_tpu/geometry/render.py``).
 
 ``bilinear_rasterizer`` adds each point's value into its four neighbouring
 pixels with bilinear weights, dropping a neighbour outside the image and
 any weight below 1e-3 (the reference's stability threshold).  It is
 differentiable with respect to the values; the pixel positions are
-constants.  ``render_point_clouds`` (the bird's-eye views of the demo) is
-not yet ported.
+constants.  ``render_point_clouds`` draws the bird's-eye views of the demo
+and of image logging: a pinhole projection, and each pixel the mean of the
+colours splatted into it weighted by ``exp(-3 depth)``.  On a CUDA device
+``scatter_add`` sums with atomics in no fixed order, so a pixel that
+several points reach varies by float32 rounding from run to run.
 """
 
 from __future__ import annotations
@@ -41,3 +44,25 @@ def bilinear_rasterizer(coords: torch.Tensor, values: torch.Tensor, out_shape) -
             idx = (w_safe + w_dim * h_safe).long()
             out = out.scatter_add(1, idx[..., None].expand(b, n, c), values * wt[..., None])
     return out.reshape(b, h_dim, w_dim, c)
+
+
+def render_point_clouds(xyz: torch.Tensor, colors: torch.Tensor, L: int = 512,
+                        R=None, t=None, focal_length: float = 1.0) -> torch.Tensor:
+    """xyz (B, N, 3) in unit space, colors (B, N, C) -> (B, L, L, C).  The
+    cloud is flipped in z, rotated by ``R`` (3, 3) (``xyz @ R``) and moved
+    by ``t`` (3,); a point projects to ``L * (xy / z + 0.5)`` and counts
+    only strictly inside (0, L - 1) on both axes."""
+    xyz = xyz * torch.tensor([1.0, 1.0, -1.0], dtype=xyz.dtype, device=xyz.device)
+    if R is not None:
+        xyz = xyz @ torch.as_tensor(R, dtype=xyz.dtype).to(xyz.device)
+    if t is not None:
+        xyz = xyz + torch.as_tensor(t, dtype=xyz.dtype).to(xyz.device)
+    uv = xyz[..., :2] / (xyz[..., 2:3] + 1e-12) * focal_length + 0.5
+    uv = uv * L
+    inside = (uv > 0.0) & (uv < L - 1)
+    colors = colors * (inside[..., 0:1] & inside[..., 1:2])
+    uv = L - uv
+    depth = torch.linalg.vector_norm(xyz, dim=-1, keepdim=True)
+    weight = torch.exp(-3.0 * depth) * (depth > 1e-8)
+    bev = bilinear_rasterizer(uv, weight * colors, (L, L))
+    return bev / (bilinear_rasterizer(uv, weight, (L, L)) + 1e-8)

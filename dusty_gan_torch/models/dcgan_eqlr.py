@@ -12,7 +12,13 @@ Generator:
                                     4.heads.<key>.1.module.{weight,bias}
 
 ``tanh`` is applied to ``depth`` only, in f32.  Each head is its own ConvT
-with its own equalized-LR scale.
+with its own equalized-LR scale.  Stage ``i`` (0: the projection, 1-3:
+up0-up2) emits ``ch(3 - i)`` channels.  ``compose_layer`` and
+``compose_alpha`` blend N latents into one sample (multi-code mGANprior):
+stages 0..compose_layer run on all N, the feature maps are summed as
+``sum(alpha * h, dim=0, keepdim=True)``, and the rest runs on batch 1.
+``compose_alpha`` is (N, C, 1, 1) in the port's NCHW layout, where the
+JAX package's is (N, 1, 1, C).
 
 Discriminator:
 
@@ -82,7 +88,8 @@ class Generator(nn.Module):
         self.in_ch = int(in_ch)
         self.out_ch = dict(out_ch or {"depth": 1})
         self.shape = tuple(shape)
-        ch = lambda i: min(ch_base << i, ch_max)
+        self.ch_base, self.ch_max = int(ch_base), int(ch_max)
+        ch = self.ch
         h0, w0 = self.shape[0] >> 4, self.shape[1] >> 4
         self.add_module("0", _Block(equal_lr_proj(self.in_ch, ch(3), (h0, w0)),
                                     FusedLeakyReLU(ch(3))))
@@ -94,10 +101,17 @@ class Generator(nn.Module):
             ))
         self.add_module("4", Heads(ch(0), self.out_ch, ring))
 
-    def forward(self, z, compute_dtype: Optional[torch.dtype] = None):
+    def ch(self, i: int) -> int:
+        return min(self.ch_base << i, self.ch_max)
+
+    def forward(self, z, compute_dtype: Optional[torch.dtype] = None,
+                compose_layer: Optional[int] = None,
+                compose_alpha: Optional[torch.Tensor] = None):
         h = z[:, :, None, None]
         for i in range(4):
             h = self._modules[str(i)](h, compute_dtype)
+            if compose_layer == i:
+                h = torch.sum(h * compose_alpha, dim=0, keepdim=True)
         outs = self._modules["4"](h, compute_dtype)
         outs["depth"] = torch.tanh(outs["depth"].float())
         return outs

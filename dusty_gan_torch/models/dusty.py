@@ -9,6 +9,8 @@ NCHW.
 
 Composite: ``depth = mask * depth + (1 - mask) * drop_const``.  Noise is
 either a fixed field (``fixed_noise``) or drawn from ``generator``.
+``compose_layer`` / ``compose_alpha`` go to the backbone (multi-code
+composition, ``dcgan_eqlr.Generator``).
 ``mask`` is returned as the concatenation [pixel, image] for DUSty2.
 """
 
@@ -73,8 +75,9 @@ class DUSty1(_Masker):
 
     def forward(self, latent, compute_dtype=None, train: bool = True,
                 threshold: float = 0.5, fixed_noise=None,
-                generator: Optional[torch.Generator] = None):
-        out = dict(self.backbone(latent, compute_dtype))
+                generator: Optional[torch.Generator] = None,
+                compose_layer: Optional[int] = None, compose_alpha=None):
+        out = dict(self.backbone(latent, compute_dtype, compose_layer, compose_alpha))
         depth = out["depth"]
         mask = self.gumbel(out["confidence"].float(), threshold, fixed_noise,
                            generator)
@@ -93,10 +96,11 @@ class DUSty2(_Masker):
 
     def forward(self, latent, compute_dtype=None, train: bool = True,
                 threshold: float = 0.5, fixed_noise=None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                compose_layer: Optional[int] = None, compose_alpha=None):
         """``fixed_noise``: None or {"pixel": (1|B,1,H,W), "image":
         (1|B,1,1,1)}."""
-        out = dict(self.backbone(latent, compute_dtype))
+        out = dict(self.backbone(latent, compute_dtype, compose_layer, compose_alpha))
         depth = out["depth"]
         logits = out["confidence"].float()  # (B, 2, H, W)
         fixed_noise = fixed_noise or {}

@@ -1,7 +1,8 @@
-"""Scalar logging (``dusty_gan_tpu/train/logging.py``): always a
-``scalars.jsonl`` in the run directory; TensorBoard events too when
-``torch.utils.tensorboard`` imports, and wandb when asked for and it
-imports.  Image logging is not ported."""
+"""Scalar and image logging (``dusty_gan_tpu/train/logging.py``): scalars
+always to a ``scalars.jsonl`` in the run directory; scalars and images to
+TensorBoard events when ``torch.utils.tensorboard`` imports, and to wandb
+when asked for and it imports.  Images go to those two sinks only, as in
+the JAX package: without either, ``image`` writes nothing."""
 
 from __future__ import annotations
 
@@ -10,6 +11,21 @@ import os
 import os.path as osp
 import time
 from typing import Optional
+
+import numpy as np
+
+
+def make_grid(images: np.ndarray, nrow: int = 4, pad: int = 2) -> np.ndarray:
+    """(B, H, W, C) -> one (H', W', C) image, ``nrow`` images a row with
+    ``pad`` zero pixels around each."""
+    b, h, w, c = images.shape
+    rows = (b + nrow - 1) // nrow
+    grid = np.zeros((rows * (h + pad) + pad, nrow * (w + pad) + pad, c), images.dtype)
+    for i in range(b):
+        r, col = divmod(i, nrow)
+        y, x = pad + r * (h + pad), pad + col * (w + pad)
+        grid[y:y + h, x:x + w] = images[i]
+    return grid
 
 
 class RunLogger:
@@ -48,6 +64,17 @@ class RunLogger:
         for k, v in mapping.items():
             self.scalar(k, v, step)
         self._jsonl.flush()
+
+    def image(self, tag: str, img_hwc: np.ndarray, step: int):
+        """(H, W, C) values in [0, 1]."""
+        img = np.clip(np.asarray(img_hwc, np.float32), 0, 1)
+        if self._tb is not None:
+            self._tb.add_image(tag, np.transpose(img, (2, 0, 1)), step)
+        if self._wandb is not None:
+            self._wandb.log({tag: self._wandb.Image(img)}, step=step)
+
+    def image_grid(self, tag: str, batch_nhwc: np.ndarray, step: int, nrow: int = 4):
+        self.image(tag, make_grid(np.asarray(batch_nhwc), nrow), step)
 
     def close(self):
         self._jsonl.close()

@@ -12,6 +12,13 @@ as the JAX step folds i into its root key, so a resumed run replays the
 uninterrupted run's draws; validation draws its latents from a generator
 keyed on the image step.
 
+Image logging (``generate``): G or G_ema in eval mode on ``fixed_latent``
+(min(batch, 16) latents drawn once from the run's seed), with Gumbel pixel
+noise from a generator of its own seed, the same at every call, as the JAX
+trainer draws from one fixed key; it returns ``postprocess``'s dict.  In
+chunk mode it runs between replays, reading G's parameters, which the
+graphs update in place.
+
 Validation (``validation``): the real side (val split, FPS to
 ``solver.validation.num_points``) is computed once per sample count;
 G_ema in eval mode generates fresh samples; the scores are SWD, JSD,
@@ -62,8 +69,10 @@ from dusty_gan_torch.train.checkpoint import (checkpoint_name, restore_checkpoin
 from dusty_gan_torch.train.graphs import ChunkRunner
 from dusty_gan_torch.train.state import create_train_state
 from dusty_gan_torch.train.step import TrainStep, fetch_reals, sample_draws
+from dusty_gan_torch.utils.postprocess import postprocess
 
-TRAIN_STREAM, VALIDATION_STREAM = 0, 1
+TRAIN_STREAM, VALIDATION_STREAM, FIXED_LATENT_STREAM, GENERATE_STREAM = 0, 1, 2, 3
+LOGGED_SAMPLES = 16  # latents of the logged samples, at most
 
 
 def derived_seed(seed: int, stream: int, i: int) -> int:
@@ -165,6 +174,9 @@ class Trainer:
             self.start_iteration = self.state.step // self.batch_size
             if verbose:
                 print(f"resumed from {cfg.resume} at iteration {self.start_iteration}")
+        g = torch.Generator().manual_seed(derived_seed(self.seed, FIXED_LATENT_STREAM, 0))
+        self.fixed_latent = torch.randn((min(self.batch_size, LOGGED_SAMPLES), self.in_ch),
+                                        generator=g).to(device)
         self._val_cache: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
         self.chunks = (ChunkRunner(self, self.steps_per_call) if self.steps_per_call > 1
                        else None)
@@ -241,6 +253,24 @@ class Trainer:
         if self.chunks is None:
             raise ValueError("step_chunk needs steps_per_call > 1")
         return self.chunks.run(iters, rows, draws)
+
+    @torch.no_grad()
+    def generate(self, ema: bool = True, latent: Optional[torch.Tensor] = None,
+                 noise=None, train_mode: bool = False) -> Dict[str, torch.Tensor]:
+        """Samples of G_ema (``ema``) or G for image logging, postprocessed
+        (B, H, W, C).  ``latent`` defaults to ``fixed_latent``; ``noise`` is
+        the Gumbel noise in ``fixed_noise``'s form (default: drawn from the
+        generator of ``GENERATE_STREAM``)."""
+        G = self.state.G_ema if ema else self.state.G
+        z = self.fixed_latent if latent is None else latent.to(self.device)
+        cdt = self.policy.compute_dtype
+        if self.masked:
+            g = torch.Generator(device=self.device)
+            g.manual_seed(derived_seed(self.seed, GENERATE_STREAM, 0))
+            out = G(z, cdt, train=train_mode, fixed_noise=noise, generator=g)
+        else:
+            out = G(z, cdt)
+        return postprocess({k: v.permute(0, 2, 3, 1) for k, v in out.items()}, self.lidar)
 
     # ------------------------------------------------------------------
     def _inv_to_points(self, inv_nhwc: torch.Tensor) -> torch.Tensor:

@@ -20,6 +20,7 @@ from dusty_gan_tpu.geometry.lidar import Lidar as JaxLidar
 from dusty_gan_tpu.train.state import TrainState as JaxTrainState
 from dusty_gan_tpu.train.state import make_optimizer
 from dusty_gan_tpu.train.step import make_train_step
+from dusty_gan_tpu.utils.torch_import import generator_params_from_torch
 
 from dusty_gan_tpu.models.dcgan_eqlr import Discriminator as JaxDiscriminator
 from dusty_gan_tpu.models.dcgan_eqlr import Generator as JaxGenerator
@@ -55,17 +56,24 @@ OUT_CH = {"depth": 1, "confidence": 2}
 TOL_F32 = dict(rtol=1e-5, atol=1e-6)  # module outputs at float32
 
 
+def _out_ch(arch):
+    masker = arch.split("/")[0]
+    return OUT_CH if masker == "dusty2" else (
+        {"depth": 1, "confidence": 1} if masker == "dusty1" else {"depth": 1})
+
+
+def jax_generator_module(arch, shape, tau=1.0):
+    backbone = JaxGenerator(in_ch=IN_CH, out_ch=_out_ch(arch), ch_base=CH_BASE,
+                            ch_max=CH_MAX, shape=shape)
+    return {"none": lambda: backbone,
+            "dusty1": lambda: JaxDUSty1(backbone=backbone, tau=tau),
+            "dusty2": lambda: JaxDUSty2(backbone=backbone, tau=tau)}[arch.split("/")[0]]()
+
+
 def jax_generator(arch, shape, tau=1.0, seed=0):
     """(flax module, params) with random weights and biases, so the biases
     are exercised too (a fresh init leaves them at zero)."""
-    masker = arch.split("/")[0]
-    out_ch = OUT_CH if masker == "dusty2" else (
-        {"depth": 1, "confidence": 1} if masker == "dusty1" else {"depth": 1})
-    backbone = JaxGenerator(in_ch=IN_CH, out_ch=out_ch, ch_base=CH_BASE,
-                            ch_max=CH_MAX, shape=shape)
-    G = {"none": lambda: backbone,
-         "dusty1": lambda: JaxDUSty1(backbone=backbone, tau=tau),
-         "dusty2": lambda: JaxDUSty2(backbone=backbone, tau=tau)}[masker]()
+    G = jax_generator_module(arch, shape, tau)
     z = jnp.zeros((1, IN_CH))
     params = G.init({"params": jax.random.PRNGKey(seed),
                      "gumbel": jax.random.PRNGKey(1)}, z)
@@ -73,6 +81,20 @@ def jax_generator(arch, shape, tau=1.0, seed=0):
     params = jax.tree.map(
         lambda p: p + jnp.asarray(0.1 * rng.randn(*p.shape), p.dtype), params)
     return G, params
+
+
+def generator_pair(arch, shape, seed=0):
+    """(flax module, its params, the port's generator) with the same random
+    weights and biases, initialised by the port and carried into the JAX
+    tree by the JAX package's importer: no JAX init to compile (op by op,
+    ~16 s on the CPU)."""
+    with torch.random.fork_rng(devices=[]), torch.no_grad():
+        torch.manual_seed(seed)
+        Gt = _port_module(arch, shape)
+        for p in Gt.parameters():
+            p.add_(0.1 * torch.randn(p.shape))
+    params = generator_params_from_torch(Gt.state_dict(), arch)
+    return jax_generator_module(arch, shape), params, Gt.eval()
 
 
 def perturb(params, seed):
@@ -96,15 +118,17 @@ def port_discriminator(shape, params):
     return D
 
 
+def _port_module(arch, shape, tau=1.0, drop_const=-1.0):
+    backbone = Generator(IN_CH, _out_ch(arch), CH_BASE, CH_MAX, shape)
+    return {"none": lambda: backbone,
+            "dusty1": lambda: DUSty1(backbone, tau=tau, drop_const=drop_const),
+            "dusty2": lambda: DUSty2(backbone, tau=tau, drop_const=drop_const)}[
+                arch.split("/")[0]]()
+
+
 def port_generator(arch, shape, params, tau=1.0, drop_const=-1.0):
     """The port's generator with the JAX weights, loaded strictly."""
-    masker = arch.split("/")[0]
-    out_ch = OUT_CH if masker == "dusty2" else (
-        {"depth": 1, "confidence": 1} if masker == "dusty1" else {"depth": 1})
-    backbone = Generator(IN_CH, out_ch, CH_BASE, CH_MAX, shape)
-    G = {"none": lambda: backbone,
-         "dusty1": lambda: DUSty1(backbone, tau=tau, drop_const=drop_const),
-         "dusty2": lambda: DUSty2(backbone, tau=tau, drop_const=drop_const)}[masker]()
+    G = _port_module(arch, shape, tau, drop_const)
     G.load_state_dict(generator_state_dict(params, arch, drop_const), strict=True)
     return G.eval()
 
@@ -157,6 +181,25 @@ def jax_step_noise(key, num_steps, shape):
         return torch.from_numpy(draws[step])
 
     return noise
+
+
+class JaxCorruptionDraws:
+    """The uniform, permutation and normal draws that
+    ``dusty_gan_tpu.utils.corruption.apply_corruption(key, ...)`` takes
+    from its one key, in the form ``dusty_gan_torch.utils.corruption``
+    takes them."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def uniform(self, shape):
+        return torch.from_numpy(np.array(jax.random.uniform(self.key, tuple(shape))))
+
+    def permutation(self, n):
+        return torch.from_numpy(np.array(jax.random.permutation(self.key, n))).long()
+
+    def normal(self, shape):
+        return torch.from_numpy(np.array(jax.random.normal(self.key, tuple(shape))))
 
 
 COLOUR_OPS = ("brightness", "saturation", "contrast")
