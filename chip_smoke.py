@@ -100,6 +100,25 @@
    logging: ``cli.train`` for 4 iterations with ``save_image`` 2, per step
    and in chunks of 2, its images' tags, grid shapes and steps held to the
    JAX CLI's, and the ms of one ``log_images`` call at batch 32.
+   (f) The distributed phase (``dusty_gan_torch/parallel/mesh.py``), each
+   multi-process part in child processes of this script (``--child``):
+   (a) at world size 1 over NCCL, one full-width step with the gradient
+   all-reduce held against the same step without it (the eager envelope
+   of phase 6a), the ms a step with and without it by CUDA events, the
+   all-reduce alone, then ``cli.train multihost=1`` for a few iterations
+   with a checkpoint and one validation on K1; (b) with two or more cards,
+   two full-width steps on two ranks (``cuda:0``, ``cuda:1``) in float32
+   against one process on the whole batches, and in bf16 against one
+   process stepping the ranks' rows as two accumulation rounds, the
+   ranks' states bit-equal, else the
+   line ``{"distributed": {"two_gpu_training": "skipped: 1 device"}}``;
+   (c) ``evaluate_synthesis --multihost`` on two ranks sharing the card,
+   the synthesis path's run and ``--metrics cd,emd`` on 64 scans: every
+   pairwise matrix and the scores equal to the single-process run's bit
+   for bit, each rank's kernel launches; (d) ``evaluate_reconstruction
+   --multihost`` on two ranks sharing the card (two batches of 64 scans,
+   100 steps): the rows held to the single-process run by twice the
+   spread of two single-process runs; the host merges' seconds.
 7. Checks the scores (every key, finite) and, on small inputs, the card's
    scores, pairwise EMD matrices, generator output and inversion against
    the CPU, and one
@@ -109,7 +128,8 @@
    ``training_chunks`` and its tolerance-tuning launches under
    ``tune_tolerance``; K3's from the demo, its launches, times and bound at
    the demo's (1, 16384)^2, with the reconstruction shape's under
-   ``batch_512``), the card line, and as the last line
+   ``batch_512``; each kernel of the distributed phase with its launches
+   per rank under ``distributed``), the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, with no result line, when there is no GPU or any phase
@@ -165,13 +185,14 @@ from dusty_gan_torch.metrics.cov_mmd_1nna import (  # noqa: E402
     ROW_BLOCK, block_schedule, compute_cov_mmd_1nna, pairwise_emd)
 from dusty_gan_torch.models.factory import define_D, define_G  # noqa: E402
 from dusty_gan_torch.models.losses import masked_loss  # noqa: E402
+from dusty_gan_torch.parallel import mesh  # noqa: E402
 from dusty_gan_torch.utils.inversion import (  # noqa: E402
     latent_noise_strength, make_inversion_loop, project_sphere)
 from dusty_gan_torch.utils.calibration import (  # noqa: E402
     calibrate_mask_threshold, drop_rate_2d)
 from dusty_gan_torch.train.state import create_train_state  # noqa: E402
 from dusty_gan_torch.train.logging import RunLogger  # noqa: E402
-from dusty_gan_torch.train.step import TrainStep, sample_draws  # noqa: E402
+from dusty_gan_torch.train.step import TrainStep, local_draws  # noqa: E402
 from dusty_gan_torch.train.trainer import Trainer  # noqa: E402
 from dusty_gan_torch.utils import profiling  # noqa: E402
 from dusty_gan_torch.utils.postprocess import postprocess  # noqa: E402
@@ -2571,6 +2592,444 @@ def image_logging_path(work: str, run: dict, dev) -> None:
     print(f"log_images at batch {TRAIN_BATCH} (sinks: {sinks}), ms:", json.dumps(times))
 
 
+# ---------------------------------------------------------------------------
+# the distributed phase: parallel/mesh.py over NCCL and gloo; each
+# multi-process part runs in child processes of this script (--child)
+# ---------------------------------------------------------------------------
+# (a) cli.train multihost=1 at world size 1 over NCCL, full width: DIST_ITERS
+# iterations (stats every TRAIN_STATS, so two windows after the first),
+# a checkpoint every DIST_SAVE, one validation at the end;
+# before it, one step with the all-reduce against the same step without it
+# (two trainers without, for the eager spread), and the ms a step with and
+# without it over DIST_TIMED iterations each, in turns
+DIST_ITERS, DIST_SAVE, DIST_TIMED = 3 * TRAIN_STATS, TRAIN_STATS, 10
+# (c) evaluate_synthesis --multihost on two ranks sharing the card: the
+# synthesis path's run, and --metrics cd,emd on DIST_EMD_NUM_TEST scans
+DIST_EMD_NUM_TEST = 64
+# (d) evaluate_reconstruction --multihost on two ranks sharing the card:
+# DIST_REC_BATCHES batches of DIST_REC_BATCH scans at DIST_REC_STEPS steps
+# (the CLI's 1000 cut in depth); the rows are held to the single-process
+# run by twice the spread of two single-process runs (cuDNN's backward
+# reduces with atomics, so an inversion does not repeat bit for bit) or
+# DIST_REC_RTOL of the column's mean magnitude, whichever is larger (a
+# depth accuracy moves by 6e-5 a pixel; rows of another scan differ by
+# tens of percent)
+DIST_REC_BATCH, DIST_REC_BATCHES, DIST_REC_STEPS, DIST_REC_RTOL = 64, 2, 100, 1e-3
+DIST_CHILD_TIMEOUT = 600  # seconds a child may take
+
+
+def launch_children(work: str, mode: str, spec: dict, local_ranks: list) -> list:
+    """This script as ``--child mode`` in one process a rank of one process
+    group, rank r on LOCAL_RANK ``local_ranks[r]``; returns each rank's
+    result.  Raises with the children's output if one fails."""
+    spec = dict(spec, out=os.path.join(work, f"child_{mode}_%d.json"))
+    spec_path = os.path.join(work, f"child_{mode}.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    port, world = mesh.free_port(), len(local_ranks)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--child", mode, spec_path],
+        env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(lr),
+                 MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r, lr in enumerate(local_ranks)]
+    outputs = []
+    try:
+        for p in procs:
+            outputs.append(p.communicate(timeout=DIST_CHILD_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"distributed {mode}: " + "\n".join(
+            f"rank {r} exited {p.returncode}:\n{out[-4000:]}"
+            for r, (p, out) in enumerate(zip(procs, outputs))))
+    results = []
+    for r in range(world):
+        with open(spec["out"] % r) as f:
+            results.append(json.load(f))
+    return results
+
+
+def recording_pairwise(store: list):
+    """Wrap ``cov_mmd_1nna.PAIRWISE``'s functions so that each matrix they
+    return is appended to ``store``; returns the restore function."""
+    saved = dict(cov_mmd_1nna.PAIRWISE)
+
+    def wrap(fn):
+        def recorded(*args, **kw):
+            out = fn(*args, **kw)
+            store.append(out)
+            return out
+        return recorded
+
+    cov_mmd_1nna.PAIRWISE.update({k: wrap(fn) for k, fn in saved.items()})
+    return lambda: cov_mmd_1nna.PAIRWISE.update(saved)
+
+
+def child_nccl(spec: dict) -> dict:
+    """(a) at world size 1 over NCCL: the step with the all-reduce held
+    against the same step without it, both timed; the all-reduce of one
+    step's gradients timed alone; then cli.train multihost=1."""
+    dev = mesh.init_distributed(torch.device("cuda"))
+    root = spec["root"]
+    out = {"world_size": mesh.world_size(), "backend": str(torch.distributed.get_backend())}
+    trainers = [Trainer(train_cfg(root, "cache_device=true"), dev, verbose=False)
+                for _ in range(3)]
+    for t in trainers[1:]:
+        t.train_step.distributed = False
+    its = [t.device_iter() for t in trainers]
+    scalars = [{k: float(v) for k, v in t.step(1, next(it)).items()}
+               for t, it in zip(trainers, its)]
+    torch.cuda.synchronize()
+    states = [state_tensors(t) for t in trainers]
+    spread = envelope(states[2], states[1])
+    held = [envelope(states[0], st) for st in states[1:]]
+    share = min(e["largest_loose_share"] for e in held)
+    diff = min(e["largest_abs_diff"] for e in held)
+    bound = max(GRAPH_LOOSE_SHARE, GRAPH_SPREAD_FACTOR * spread["largest_loose_share"])
+    out["step_hold"] = {"without_vs_without": spread, "with_vs_without": held,
+                        "loose_share": share, "loose_share_bound": bound,
+                        "largest_abs_diff": diff, "abs_diff_bound": GRAPH_LR_BOUND,
+                        "stop_agreed": scalars[0].pop("stop/agreed"),
+                        "scalars_with": scalars[0], "scalars_without": scalars[1:]}
+    if share > bound or diff > GRAPH_LR_BOUND or set(scalars[0]) != set(scalars[1]):
+        raise AssertionError(f"the step with the all-reduce left the eager envelope: "
+                             f"{out['step_hold']}")
+
+    t, it = trainers[0], its[0]
+    i = [1]
+
+    def step():
+        i[0] += 1
+        t.step(i[0], next(it))
+
+    ms = {"without": [], "with": []}
+    for name in ("without", "with", "with", "without"):
+        t.train_step.distributed = name == "with"
+        ms[name].append(cuda_ms(step, iters=DIST_TIMED))
+    t.train_step.distributed = True
+    grads = [p.grad for net in (t.state.G, t.state.D) for p in net.parameters()
+             if p.grad is not None]
+    out["step_ms"] = ms
+    out["all_reduce_ms"] = cuda_ms(lambda: mesh.all_reduce_mean_(grads), iters=DIST_TIMED)
+    out["all_reduce_mb"] = sum(g.numel() * g.element_size() for g in grads) / 1e6
+    del trainers, its, t, it, grads, states
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    run_dir = spec["run_dir"]
+    timings = {}
+    reset_launches()
+    train_cli.main(train_overrides(root, run_dir, DIST_ITERS, "multihost=1",
+                                   f"solver.checkpoint.save_model={DIST_SAVE}",
+                                   f"solver.checkpoint.test={DIST_ITERS}"), timings=timings)
+    out["cli_launches"] = launch_counts()
+    rows = logged(run_dir)
+    saved = sorted(os.listdir(os.path.join(run_dir, "models")))
+    want = [f"checkpoint_{i * TRAIN_BATCH:010d}.pth"
+            for i in range(DIST_SAVE, DIST_ITERS + 1, DIST_SAVE)]
+    keys = {k for r in rows.values() for k in r}
+    if saved != want or "stop/agreed" in keys or "score/mmd-cd" not in keys or \
+            not all(math.isfinite(v) for r in rows.values() for v in r.values()) or \
+            out["cli_launches"]["cd_block"] <= 0:
+        raise AssertionError(f"cli.train multihost=1: checkpoints {saved}, keys "
+                             f"{sorted(keys)}, launches {out['cli_launches']}")
+    out["cli"] = {"train_s": timings["train_s"], "validation_s": timings["validation_s"],
+                  "scans_per_sec": {step // TRAIN_BATCH: r["perf/scans_per_sec"]
+                                    for step, r in rows.items() if "perf/scans_per_sec" in r}}
+    mesh.shutdown()
+    return out
+
+
+def child_eval(spec: dict) -> dict:
+    """(c), (d) on two ranks sharing the card: evaluate_synthesis and
+    evaluate_reconstruction with --multihost; each run's kernel launches
+    (set to 0 just before it, read just after), its matrices and the
+    seconds of each host merge."""
+    dev = mesh.init_distributed(torch.device("cuda"))
+    out = {"rank": mesh.rank(), "device": str(dev), "merges": []}
+    gather = mesh.pod_allgather
+
+    def timed_gather(x):
+        """The merge, then the same gather again, timed alone: the first
+        also waits for the slower rank."""
+        t0 = time.perf_counter()
+        got = gather(x)
+        t1 = time.perf_counter()
+        gather(x)
+        out["merges"].append({"shape": list(np.shape(x)), "wait_and_merge_s": t1 - t0,
+                              "merge_s": time.perf_counter() - t1})
+        return got
+
+    mesh.pod_allgather = timed_gather
+    work = os.path.dirname(spec["out"])
+    for name in ("cd", "cd,emd"):
+        matrices = []
+        restore = recording_pairwise(matrices)
+        try:
+            reset_launches()
+            out[name] = es.main(spec[name] + ["--multihost"])
+            out[f"{name}_launches"] = launch_counts()
+        finally:
+            restore()
+        np.savez(os.path.join(work, f"matrices_{name}_{mesh.rank()}.npz"), *matrices)
+    reset_launches()
+    out["rec"] = er.main(spec["rec"] + ["--multihost"])
+    out["rec_launches"] = launch_counts()
+    mesh.pod_allgather = gather
+    mesh.shutdown()
+    return out
+
+
+def timed_steps(trainer, batch: dict, first: int) -> float:
+    """ms a step of ``trainer`` on one resident batch, iterations from
+    ``first`` on, by CUDA events over DIST_TIMED steps."""
+    i = [first - 1]
+
+    def step():
+        i[0] += 1
+        trainer.step(i[0], batch)
+
+    return cuda_ms(step, iters=DIST_TIMED)
+
+
+def two_steps(trainer, batches: dict, step=None) -> list:
+    """Iterations 1 and 2 of ``trainer`` on ``batches["b1"]``, ``["b2"]``
+    (``step(i, batch)`` in place of ``trainer.step``); the state on the
+    host after each."""
+    states = []
+    for i, key in ((1, "b1"), (2, "b2")):
+        (step or trainer.step)(i, {"depth": batches[key]})
+        torch.cuda.synchronize()
+        states.append({k: v.cpu().clone() for k, v in state_tensors(trainer).items()})
+    return states
+
+
+def child_two_gpu(spec: dict) -> dict:
+    """(b) two steps of full-width training in float32 and in bf16 on this
+    rank's card, on its half of the global batches; writes its states
+    after each; then under bf16 the ms a step and of the gradient
+    all-reduce alone."""
+    dev = mesh.init_distributed(torch.device("cuda"))
+    rows = mesh.local_batch_slice(TRAIN_BATCH)
+    with np.load(spec["batches"]) as z:
+        batches = {k: z[k][rows] for k in ("b1", "b2")}
+    states = {}
+    for amp in ("false", "true"):
+        trainer = Trainer(train_cfg(spec["root"], f"enable_amp={amp}"), dev, verbose=False)
+        states[amp] = two_steps(trainer, batches)
+        if amp == "false":
+            del trainer
+    torch.save(states, os.path.join(os.path.dirname(spec["out"]), f"two_gpu_{mesh.rank()}.pt"))
+    out = {"rank": mesh.rank(), "device": str(dev),
+           "step_ms": timed_steps(trainer, {"depth": batches["b1"]}, 3)}
+    grads = [p.grad for net in (trainer.state.G, trainer.state.D) for p in net.parameters()
+             if p.grad is not None]
+    out["all_reduce_ms"] = cuda_ms(lambda: mesh.all_reduce_mean_(grads), iters=DIST_TIMED)
+    mesh.shutdown()
+    return out
+
+
+CHILDREN = {"nccl": child_nccl, "eval": child_eval, "two_gpu": child_two_gpu}
+
+
+def run_child(mode: str, spec_path: str) -> int:
+    with open(spec_path) as f:
+        spec = json.load(f)
+    result = CHILDREN[mode](spec)
+    with open(spec["out"] % int(os.environ["RANK"]), "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def hold_rows(got: dict, want: dict, other: dict) -> dict:
+    """Reconstruction columns ``got`` against ``want``, each within twice
+    the spread between ``want`` and ``other`` (two single-process runs) or
+    DIST_REC_RTOL of the column's mean magnitude."""
+    report = {}
+    for k, w in want.items():
+        g, w, o = np.asarray(got[k]), np.asarray(w), np.asarray(other[k])
+        if g.shape != w.shape:
+            raise AssertionError(f"reconstruction rows: {k} has {g.shape}, not {w.shape}")
+        bound = max(GRAPH_SPREAD_FACTOR * float(np.abs(o - w).max()),
+                    DIST_REC_RTOL * float(np.abs(w).mean()))
+        err = float(np.abs(g - w).max())
+        report[k] = {"max_abs_diff": err, "bound": bound}
+        if err > bound:
+            raise AssertionError(f"reconstruction rows: {k} {err} beyond {bound}")
+    return report
+
+
+def rank_rounds(trainer, world: int = 2):
+    """``step(i, batch)`` for a one-process ``trainer`` of ``world``
+    accumulation rounds that steps on the whole batch with iteration i's
+    global draws (those of one round), round r taking rank r's rows of
+    them: what ``world`` ranks compute, in one process."""
+    def step(i, batch):
+        trainer.num_accumulation = 1
+        try:
+            (draws,) = trainer.draws(i)
+        finally:
+            trainer.num_accumulation = world
+        rounds = [local_draws([draws], r, world)[0] for r in range(world)]
+        return trainer.train_step(trainer.state, trainer.to_device(batch), rounds)
+    return step
+
+
+def hold_state(got: list, runs: list) -> dict:
+    """``got`` (the state after each of two steps) against its nearest of
+    ``runs`` (each such a list), after each step, within the larger of the
+    JAX state envelope and twice the largest spread between the runs;
+    after step 1 every element within GRAPH_LR_BOUND.  The report and the
+    failures."""
+    report, failures = {}, []
+    for n in range(2):
+        spread = [envelope(runs[b][n], runs[a][n])
+                  for a in range(len(runs)) for b in range(a + 1, len(runs))]
+        held = [envelope(got[n], run[n]) for run in runs]
+        share = min(e["largest_loose_share"] for e in held)
+        diff = min(e["largest_abs_diff"] for e in held)
+        bound = max(GRAPH_LOOSE_SHARE, GRAPH_SPREAD_FACTOR * max(
+            e["largest_loose_share"] for e in spread))
+        report[f"step_{n + 1}"] = {"spread": spread, "held": held, "loose_share": share,
+                                   "loose_share_bound": bound, "largest_abs_diff": diff}
+        if share > bound or (n == 0 and diff > GRAPH_LR_BOUND):
+            failures.append(f"step {n + 1}: {report[f'step_{n + 1}']}")
+    return {"report": report, "failures": failures}
+
+
+def two_gpu_training(work: str, root: str, dev) -> dict:
+    """(b) two full-width steps on two ranks (cuda:0, cuda:1), in float32
+    and in bf16, the ranks' states bit-equal, each held as phase 6a holds
+    graph against eager (``hold_state``: its nearest of GRAPH_EAGER_RUNS
+    one-process runs, by the eager envelope, since the eager step does not
+    repeat on the card).  Float32: against one process on the whole
+    batches.  Bf16: against one process in two accumulation rounds, round
+    r on rank r's rows with their draws (``rank_rounds``), since under bf16
+    a half batch may take other cuDNN algorithms than the whole batch; the
+    distance to one process on the whole batches is reported beside it, as
+    is the distance between that witness and the whole-batch runs.  Then
+    under bf16 the ms a step at world size 2 and in one process."""
+    t0 = time.perf_counter()
+    loader = Loader(define_dataset(train_cfg(root).dataset, phase="train"), TRAIN_BATCH)
+    it = loader.epoch(0)
+    batches = {"b1": next(it)["depth"], "b2": next(it)["depth"]}
+    path = os.path.join(work, "two_gpu_batches.npz")
+    np.savez(path, **batches)
+    children = launch_children(work, "two_gpu", {"root": root, "batches": path}, [0, 1])
+    ranks = [torch.load(os.path.join(work, f"two_gpu_{r}.pt"), weights_only=True)
+             for r in range(2)]
+    unequal = [(amp, n, k) for amp in ranks[0] for n in range(2) for k in ranks[0][amp][n]
+               if not torch.equal(ranks[0][amp][n][k], ranks[1][amp][n][k])]
+
+    def runs(amp: str, rounds: int) -> list:
+        out = []
+        for _ in range(GRAPH_EAGER_RUNS):
+            t = Trainer(train_cfg(root, f"enable_amp={amp}",
+                                  f"solver.num_accumulation={rounds}"), dev, verbose=False)
+            out.append(two_steps(t, batches, rank_rounds(t) if rounds > 1 else None))
+            del t
+        return out
+
+    f32, whole, witness = runs("false", 1), runs("true", 1), runs("true", 2)
+    t = Trainer(train_cfg(root), dev, verbose=False)
+    one_ms = timed_steps(t, {"depth": batches["b1"]}, 1)
+    del t
+    held = {"float32_vs_one_process": hold_state(ranks[0]["false"], f32),
+            "bf16_vs_rank_rounds": hold_state(ranks[0]["true"], witness)}
+    seen = {"bf16_vs_one_process": hold_state(ranks[0]["true"], whole),
+            "rank_rounds_vs_one_process": hold_state(witness[0], whole)}
+    report = {"ranks_unequal_tensors": unequal,
+              **{k: v["report"] for k, v in held.items()},
+              "reported_not_held": {k: v["report"] for k, v in seen.items()}}
+    report.update({
+        "step_ms_by_rank": [c["step_ms"] for c in children],
+        "all_reduce_ms_by_rank": [c["all_reduce_ms"] for c in children],
+        "one_process_step_ms": one_ms,
+        "scans_per_sec": {"two_gpu": TRAIN_BATCH * 1e3 / max(c["step_ms"] for c in children),
+                          "one_process": TRAIN_BATCH * 1e3 / one_ms},
+        "phase_s": time.perf_counter() - t0})
+    print(json.dumps({"distributed": {"two_gpu_training": report}}))
+    failures = [f"{k}: {f}" for k, v in held.items() for f in v["failures"]]
+    if unequal or failures:
+        raise AssertionError(f"two-GPU training: ranks unequal {unequal}; {failures}")
+    return report
+
+
+def distributed_path(work: str, run: dict, dev, validation_s: float) -> dict:
+    """The distributed phase: (a) NCCL at world size 1, (b) two GPUs when
+    two are visible, (c) and (d) the evaluation CLIs on two ranks sharing
+    the card.  Returns the per-rank kernel launches of each path."""
+    t_phase = time.perf_counter()
+    root = run["root"]
+    print("distributed:", json.dumps({
+        "group_timeout_s": mesh.GROUP_TIMEOUT.total_seconds(),
+        "validation_s_at_test_cadence": validation_s, "val_scans": VAL_SCANS}))
+
+    # (a)
+    t0 = time.perf_counter()
+    (nccl,) = launch_children(work, "nccl", {"root": root,
+                                             "run_dir": os.path.join(work, "dist_train")}, [0])
+    nccl["phase_s"] = time.perf_counter() - t0
+    print("distributed nccl world size 1:", json.dumps(nccl))
+
+    # (b)
+    if torch.cuda.device_count() < 2:
+        print(json.dumps({"distributed": {"two_gpu_training": "skipped: 1 device"}}))
+    else:
+        two_gpu_training(work, root, dev)
+
+    # (c), (d)
+    t0 = time.perf_counter()
+    emd_args = synthesis_args(work, run, DIST_EMD_NUM_TEST) + ["--metrics", "cd,emd"]
+    rec_args = ["--model-path", run["pth"], "--config-path", run["cfg_path"],
+                "--batch-size", str(DIST_REC_BATCH), "--num-step", str(DIST_REC_STEPS),
+                "--max-batches", str(DIST_REC_BATCHES), "--device", "cuda"]
+    spec = {"cd": synthesis_args(work, run, NUM_TEST), "cd,emd": emd_args,
+            "rec": rec_args + ["--save-dir-path", os.path.join(work, "dist_rec")]}
+    ranks = launch_children(work, "eval", spec, [0, 0])
+    t_ranks = time.perf_counter() - t0
+    report = {"ranks_s": t_ranks, "devices": [r["device"] for r in ranks]}
+    for name in ("cd", "cd,emd"):
+        matrices = []
+        restore = recording_pairwise(matrices)
+        try:
+            want = es.main(spec[name])
+        finally:
+            restore()
+        for r in range(2):
+            with np.load(os.path.join(work, f"matrices_{name}_{r}.npz")) as z:
+                got = [z[f"arr_{i}"] for i in range(len(z.files))]
+            if len(got) != len(matrices) or not all(np.array_equal(a, b) for a, b in
+                                                    zip(got, matrices)):
+                raise AssertionError(f"evaluate_synthesis --multihost ({name}): rank {r}'s "
+                                     "matrices are not the single-process run's")
+            if ranks[r][name] != want:
+                raise AssertionError(f"evaluate_synthesis --multihost ({name}): rank {r}'s "
+                                     f"scores {ranks[r][name]} are not {want}")
+        report[name] = {"matrices_bit_equal": len(matrices), "scores_equal": True,
+                        "launches_by_rank": [r[f"{name}_launches"] for r in ranks]}
+    one = [er.main(rec_args + ["--save-dir-path", os.path.join(work, f"dist_rec_one{n}")])
+           for n in range(2)]
+    report["rec"] = {"rows": len(one[0]["cd"]),
+                     "hold": hold_rows(ranks[0]["rec"], one[0], one[1]),
+                     "launches_by_rank": [r["rec_launches"] for r in ranks]}
+    if ranks[0]["rec"] != ranks[1]["rec"] or len(one[0]["cd"]) != DIST_REC_BATCH * \
+            DIST_REC_BATCHES:
+        raise AssertionError("evaluate_reconstruction --multihost: the ranks' rows differ")
+    report["merges_s_by_rank"] = [r["merges"] for r in ranks]
+    report["phase_s"] = time.perf_counter() - t0
+    print("distributed evaluation, two ranks on one card:", json.dumps(report))
+    print(f"distributed phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"training_nccl": nccl["cli_launches"],
+            "synthesis": report["cd"]["launches_by_rank"],
+            "cd_emd": report["cd,emd"]["launches_by_rank"],
+            "reconstruction": report["rec"]["launches_by_rank"]}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--num-test", type=int, default=NUM_TEST,
@@ -2581,11 +3040,18 @@ def main(argv=None) -> int:
     parser.add_argument("--emd-num-test", type=int, default=EMD_NUM_TEST,
                         help="scored samples of the --metrics cd,emd run and of the "
                              "calibration run")
+    parser.add_argument("--child", nargs=2, metavar=("MODE", "SPEC"),
+                        help="run one rank of the distributed phase (started by the "
+                             "phase itself)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    if args.child:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        return run_child(*args.child)
     if args.num_test < REC_BATCH:
         raise SystemExit(f"--num-test must be at least {REC_BATCH}: the "
                          "reconstruction run inverts one batch of that many scans")
@@ -2641,6 +3107,7 @@ def main(argv=None) -> int:
         time_chunks(dev, run["root"])
         chunk_training = chunk_cli_path(work, run)
         image_logging_path(work, run, dev)
+        distributed = distributed_path(work, run, dev, training["validation_s"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for i, (x, y) in enumerate(rec_clouds):
@@ -2672,6 +3139,17 @@ def main(argv=None) -> int:
                                      **hold_blocks(chunk_training["blocks"],
                                                    "chunk-mode training validation")}
     del training["blocks"], tune["blocks"], chunk_training["blocks"]
+    # the distributed phase's launches, per rank: K1 in cli.train multihost=1
+    # (world size 1, its validation) and in the striped synthesis run, K2 in
+    # the striped reconstruction run, K4 (and K1) in the striped cd,emd run
+    by_rank = lambda path, name: [r[name] for r in distributed[path]]  # noqa: E731
+    entries[0]["distributed"] = {
+        "training_nccl_world_size_1": distributed["training_nccl"]["cd_block"],
+        "synthesis_launches_by_rank": by_rank("synthesis", "cd_block"),
+        "cd_emd_launches_by_rank": by_rank("cd_emd", "cd_block")}
+    entries[1]["distributed"] = {
+        "reconstruction_launches_by_rank": by_rank("reconstruction", "nn_dist")}
+    entries[3]["distributed"] = {"cd_emd_launches_by_rank": by_rank("cd_emd", "emd_block")}
     print(f"cd_block launches in one {args.num_test}-scan run: "
           f"{cd_launches // 2}; in one 5000-scan run: {protocol_launches()}")
     profile_inversion(dev, run)

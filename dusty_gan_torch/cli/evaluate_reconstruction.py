@@ -4,7 +4,8 @@
     python -m dusty_gan_torch.cli.evaluate_reconstruction \\
         --model-path <checkpoint.pth> --config-path <run>/.hydra/config.yaml \\
         [--tol 0] [--batch-size 512] [--distance l1|l2] [--num-step 1000] \\
-        [--max-batches -1] [--device cuda]
+        [--max-batches -1] [--device cuda] [--multihost]
+    torchrun --nproc-per-node N -m dusty_gan_torch.cli.evaluate_reconstruction ... --multihost
 
 For each test batch: the EMA generator with frozen Gumbel noise inverts a
 spherical latent (Adam lr 0.1, StyleGAN2 cosine-ramp schedule, decaying
@@ -20,6 +21,15 @@ generators seeded by ``bi`` on the device (``initial_latent``,
 ``step_noise``), so a batch's result does not depend on which other batches
 run.  The generator's convolutions run in bf16 (``make_eval_generator``'s
 default), as the JAX CLI's do.
+
+``--multihost`` joins the process group that torchrun's environment
+describes (``parallel/mesh.py``): batch ``bi`` is inverted by rank
+``bi % W``, and the per-sample rows are merged as the JAX CLI merges them
+(``merge_process_results``: one gather of the counts, one of the rows
+padded to the largest count, sorted by global sample index) over gloo, so
+ranks may share a card.  Rank 0 writes the CSV; every rank returns the
+merged columns.  A group of more than one rank without ``--multihost``
+raises, since each rank would repeat every batch.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ from dusty_gan_torch.geometry.lidar import tanh_to_sigmoid
 from dusty_gan_torch.metrics.chamfer import compute_cd
 from dusty_gan_torch.metrics.depth import compute_depth_accuracy, compute_depth_error
 from dusty_gan_torch.models.losses import masked_loss
+from dusty_gan_torch.parallel import mesh
 from dusty_gan_torch.utils.inversion import NoiseFn, make_inversion_loop, project_sphere
 from dusty_gan_torch.utils.postprocess import postprocess
 from dusty_gan_torch.utils.setup import make_eval_generator, setup
@@ -137,6 +148,20 @@ def reconstruct_batch(gen, lidar, batch: Dict[str, np.ndarray], z0: torch.Tensor
     return res
 
 
+def merge_process_results(results: Dict[str, list]) -> Dict[str, list]:
+    """The per-sample columns of every rank (``RESULT_KEYS``, ``index``
+    included), merged in order of global sample index, without ``index``.
+    Every rank calls it in lockstep, also one that inverted no batch."""
+    vals = np.asarray([results[k] for k in RESULT_KEYS], np.float64).T
+    vals = vals.reshape(-1, len(RESULT_KEYS))
+    counts = mesh.pod_allgather(np.asarray([vals.shape[0]], np.int64))[:, 0]
+    pad = np.zeros((int(counts.max()) - vals.shape[0], len(RESULT_KEYS)))
+    gathered = mesh.pod_allgather(np.concatenate([vals, pad]))
+    rows = np.concatenate([gathered[p, :n] for p, n in enumerate(counts)])
+    rows = rows[np.argsort(rows[:, RESULT_KEYS.index("index")], kind="stable")]
+    return {k: rows[:, i].tolist() for i, k in enumerate(RESULT_KEYS) if k != "index"}
+
+
 def main(argv=None, stats: Optional[Dict[str, float]] = None):
     """Returns the per-sample result columns (without ``index``).
     ``stats``, when given, accumulates what ``reconstruct_batch`` records
@@ -150,15 +175,23 @@ def main(argv=None, stats: Optional[Dict[str, float]] = None):
     parser.add_argument("--distance", default="l1", choices=["l1", "l2"])
     parser.add_argument("--num-step", type=int, default=1000)
     parser.add_argument("--max-batches", type=int, default=-1)
-    parser.add_argument("--multihost", action="store_true", help="not yet ported")
+    parser.add_argument("--multihost", action="store_true",
+                        help="join torchrun's process group and stripe the test "
+                             "batches over its ranks")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost is not yet ported to dusty_gan_torch; use "
-            "dusty_gan_tpu.cli.evaluate_reconstruction for it")
     device = resolve_device(args.device)
+    with mesh.process_group(device, join=args.multihost) as device:
+        return _evaluate(args, device, stats)
+
+
+def _evaluate(args, device, stats: Optional[Dict[str, float]]) -> Dict[str, list]:
+    ranks, rank = mesh.world_size(), mesh.rank()
+    if ranks > 1 and not args.multihost:
+        raise SystemExit("evaluate_reconstruction in a process group of more than one "
+                         "rank needs --multihost, which stripes the batches over the "
+                         "ranks (without it every rank repeats every batch)")
 
     cfg, G, lidar, fixed_noise = setup(args.model_path, args.config_path, device)
     gen = make_eval_generator(G, fixed_noise)
@@ -170,6 +203,8 @@ def main(argv=None, stats: Optional[Dict[str, float]] = None):
     for bi, batch in enumerate(loader.epoch()):
         if 0 <= args.max_batches <= bi:
             break
+        if bi % ranks != rank:
+            continue  # another rank inverts this batch
         b = len(batch["depth"])
         res = reconstruct_batch(
             gen, lidar, batch, initial_latent(bi, b, in_ch, device),
@@ -186,6 +221,10 @@ def main(argv=None, stats: Optional[Dict[str, float]] = None):
                 results[k] += res[k].float().cpu().tolist()
         print(f"batch {bi}: cd={np.mean(results['cd']):.5f}")
 
+    if ranks > 1:
+        results = merge_process_results(results)
+        if rank != 0:
+            return results
     results.pop("index", None)
     os.makedirs(args.save_dir_path, exist_ok=True)
     timestamp = datetime.datetime.now().isoformat()

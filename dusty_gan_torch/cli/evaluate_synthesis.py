@@ -3,7 +3,9 @@
     python -m dusty_gan_torch.cli.evaluate_synthesis \\
         --model-path <checkpoint.pth> --config-path <run>/.hydra/config.yaml \\
         [--num-test 5000] [--num-points 2048] [--tol 0] [--compute-gt] \\
-        [--metrics cd[,emd]] [--calibrate-drop-rate] [--device cuda]
+        [--metrics cd[,emd]] [--calibrate-drop-rate] [--device cuda] \\
+        [--multihost]
+    torchrun --nproc-per-node N -m dusty_gan_torch.cli.evaluate_synthesis ... --multihost
 
 EMA generator with frozen Gumbel noise; real train/test tensors cached under
 the dataset root with a content signature; uniform-stride subsample to
@@ -25,6 +27,14 @@ above every evaluation seed of a run with fewer than 3.39e9 samples (0xCA1
 itself is evaluation sample 3233's).  They are not the JAX CLI's
 ``PRNGKey(0xCA1)`` draws, so the calibrated threshold differs from the JAX
 CLI's by the sampling noise of ``--calib-samples`` latents.
+
+``--multihost`` joins the process group that torchrun's environment
+describes (``parallel/mesh.py``; the device becomes ``cuda:LOCAL_RANK``).
+Every rank computes the cheap stages with the same seeds (reals,
+calibration, generation, FPS, SWD, JSD) and the pairwise matrices' block-
+rows are striped over the ranks and merged on the host over gloo, so two
+ranks may share a card.  Rank 0 alone writes the real-tensor caches and
+the result JSON; every rank returns the scores.
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ from dusty_gan_torch.metrics.cov_mmd_1nna import check_metrics, compute_cov_mmd_
 from dusty_gan_torch.metrics.fps import downsample_point_clouds
 from dusty_gan_torch.metrics.jsd import compute_jsd
 from dusty_gan_torch.metrics.swd import compute_swd
+from dusty_gan_torch.parallel import mesh
 from dusty_gan_torch.utils.calibration import (calibrate_mask_threshold, drop_rate_2d,
                                                real_drop_rate)
 from dusty_gan_torch.utils.setup import make_eval_generator, setup
@@ -96,10 +107,11 @@ def to_points(lidar, inv: torch.Tensor, tol: float, num_points: int) -> torch.Te
 
 def score(gen_2d, gen_3d, ref_2d, ref_3d, cd_batch: int, draws=None,
           timings: Optional[Dict[str, float]] = None,
-          metrics: Tuple[str, ...] = ("cd",)) -> Dict[str, float]:
+          metrics: Tuple[str, ...] = ("cd",), process_shard: bool = False) -> Dict[str, float]:
     """SWD, JSD and COV/MMD/1-NNA (over each of ``metrics``: "cd", "emd")
     of generated against reference images (B, H, W, 1) and clouds
-    (B, N, 3)."""
+    (B, N, 3); ``process_shard`` stripes the pairwise matrices over the
+    process group's ranks."""
     timings = {} if timings is None else timings
     device = gen_2d.device
     scores: Dict[str, float] = {}
@@ -110,8 +122,9 @@ def score(gen_2d, gen_3d, ref_2d, ref_3d, cd_batch: int, draws=None,
     t = time.perf_counter()
     scores["jsd"] = compute_jsd(gen_3d / 2.0, ref_3d / 2.0)
     timings["jsd"] = time.perf_counter() - t
-    scores.update(compute_cov_mmd_1nna(gen_3d, ref_3d, cd_batch, metrics, verbose=True,
-                                       timings=timings))
+    scores.update(compute_cov_mmd_1nna(gen_3d, ref_3d, cd_batch, metrics,
+                                       verbose=mesh.is_main(), timings=timings,
+                                       process_shard=process_shard))
     return scores
 
 
@@ -122,12 +135,6 @@ def _subsample(arr: np.ndarray, num_test: int) -> np.ndarray:
         limit = skip * num_test + 1
         arr = arr[skip:limit:skip]
     return arr
-
-
-def _not_ported(flag: str):
-    raise NotImplementedError(
-        f"{flag} is not yet ported to dusty_gan_torch; use "
-        "dusty_gan_tpu.cli.evaluate_synthesis for it")
 
 
 def main(argv=None, timings: Optional[Dict[str, float]] = None):
@@ -156,7 +163,8 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None):
                         help="latents used to measure the generated drop rate "
                              "during calibration")
     parser.add_argument("--multihost", action="store_true",
-                        help="not yet ported")
+                        help="join torchrun's process group and stripe the "
+                             "pairwise matrices over its ranks")
     parser.add_argument("--prepare-only", action="store_true",
                         help="build the content-signed real-tensor caches, "
                              "then exit without scoring")
@@ -166,9 +174,14 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None):
 
     metrics = tuple(m.strip() for m in args.metrics.split(",") if m.strip())
     check_metrics(metrics)
-    if args.multihost:
-        _not_ported("--multihost")
     device = resolve_device(args.device)
+    with mesh.process_group(device, join=args.multihost) as device:
+        return _evaluate(args, metrics, device, timings)
+
+
+def _evaluate(args, metrics: Tuple[str, ...], device,
+              timings: Optional[Dict[str, float]]) -> Dict[str, float]:
+    pod, is_main = mesh.world_size() > 1, mesh.is_main()
     timings = {} if timings is None else timings
 
     cfg, G, lidar, fixed_noise = setup(args.model_path, args.config_path, device)
@@ -206,6 +219,8 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None):
         d3 = to_points(lidar, d2, REAL_TOL, args.num_points)
         reals[subset] = {"2d": d2.cpu().numpy(), "3d": d3.cpu().numpy()}
         timings["reals_project"] += time.perf_counter() - t
+        if not is_main:
+            continue  # rank 0 writes the cache
         t = time.perf_counter()
         os.makedirs(osp.dirname(cache_path), exist_ok=True)
         tmp = cache_path + f".tmp.{os.getpid()}.npz"
@@ -228,9 +243,11 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None):
     if args.compute_gt:
         scores = score(reals["train"]["2d"], reals["train"]["3d"],
                        reals["test"]["2d"], reals["test"]["3d"], args.cd_batch,
-                       timings=timings, metrics=metrics)
+                       timings=timings, metrics=metrics, process_shard=pod)
         scores["#test"] = args.num_test
         scores["#points"] = args.num_points
+        if not is_main:
+            return scores
         pprint.pprint(scores)
         gt_dir = f"outputs/logs/dataset={cfg.dataset.name}/gt/evaluation/tol=0"
         os.makedirs(gt_dir, exist_ok=True)
@@ -269,13 +286,15 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None):
     timings["fps"] = time.perf_counter() - t
 
     scores = score(fake_2d, fake_3d, reals["test"]["2d"], reals["test"]["3d"],
-                   args.cd_batch, timings=timings, metrics=metrics)
+                   args.cd_batch, timings=timings, metrics=metrics, process_shard=pod)
     scores["#test"] = args.num_test
     scores["#points"] = args.num_points
     if mask_threshold != 0.5 or calib_info:
         scores["drop_rate/fake"] = float(drop_rate_2d(fake_2d, drop_const))
         scores["mask_threshold"] = mask_threshold
         scores.update(calib_info)
+    if not is_main:
+        return scores
     pprint.pprint(scores)
     os.makedirs(args.save_dir_path, exist_ok=True)
     save_path = osp.join(args.save_dir_path, f"{timestamp}.json")

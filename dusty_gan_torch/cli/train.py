@@ -1,14 +1,32 @@
-"""Training on one GPU (``dusty_gan_tpu/cli/train.py``):
+"""Training on one or more GPUs (``dusty_gan_tpu/cli/train.py``):
 
     python -m dusty_gan_torch.cli.train dataset=kitti_odometry \\
         model=dusty2_dcgan_eqlr solver=nsgan_eqlr [key=value ...] [device=cuda]
+    torchrun --nproc-per-node N -m dusty_gan_torch.cli.train ... multihost=1
 
 The reference's ``key=value`` overrides, plus the CLI-only keys
 ``total_iterations=N`` (cap the run), ``run_dir=…`` (fix the output
 directory; default ``outputs/logs/dataset=…/model=…/solver=…/<date>/
 <time>``), ``config_dir=…``, ``validate_samples=N`` (val scans scored per
-validation; default all), ``profile_dir=…`` and ``device=`` (default
-``cuda``; a run without a visible GPU raises unless ``device=cpu``).
+validation; default all), ``profile_dir=…``, ``device=`` (default
+``cuda``; a run without a visible GPU raises unless ``device=cpu``),
+``multihost=1`` and ``preempt_sync=N``.
+
+Ranks (``parallel/mesh.py``): ``num_devices`` (config; null means every
+visible GPU, and one process on the CPU) above 1 starts that many local
+processes, rank r on ``cuda:r`` (or on the CPU over gloo with
+``device=cpu``); more GPUs than are visible raise.  ``multihost=1`` joins
+the process group that torchrun's environment describes instead (then
+``num_devices`` must be null or the world size).  ``solver.batch_size`` is
+the global batch; each rank trains on its slice and the step averages the
+gradients.  Rank 0 alone logs, prints, validates, logs images and writes
+the config and the checkpoints; every rank holds the same state.  A
+SIGTERM to any rank stops every rank at the same iteration: each step's
+scalar all-reduce carries the ranks' stop flags, and every rank reads the
+vote every ``preempt_sync`` iterations (default ``max(1, min(save_stats,
+100))``), so no collective runs at a point the ranks do not share; rank 0
+checkpoints and every rank returns.  ``steps_per_call > 1`` in a process
+group raises (``ROADMAP.md``).
 
 Writes ``.hydra/config.yaml``, ``scalars.jsonl`` (every
 ``solver.checkpoint.save_stats`` iterations and, in the per-step loop, at
@@ -41,8 +59,6 @@ at the start (the loader's stream is a function of the position, so the
 batch stream does not move), and G's samples of ``Trainer.fixed_latent``
 as ``synth/*`` every ``save_image`` iterations, in the per-step loop and,
 in chunk mode, between chunks, never inside a capture or a replay.
-
-Not yet ported, each raising: ``multihost``, ``preempt_sync``.
 """
 
 from __future__ import annotations
@@ -60,15 +76,15 @@ import torch
 from dusty_gan_torch import resolve_device, synchronize
 from dusty_gan_torch.config import compose, run_dir_for, save_config
 from dusty_gan_torch.geometry.render import render_point_clouds
+from dusty_gan_torch.parallel import mesh
 from dusty_gan_torch.train.logging import RunLogger
 from dusty_gan_torch.train.step import fetch_reals
-from dusty_gan_torch.train.trainer import Trainer
+from dusty_gan_torch.train.trainer import CHUNKS_IN_GROUP, Trainer
 from dusty_gan_torch.utils import profiling
 from dusty_gan_torch.utils.postprocess import colorize, postprocess
 
 CLI_KEYS = ("total_iterations", "run_dir", "config_dir", "validate_samples", "device",
-            "profile_dir")
-NOT_PORTED = ("multihost", "preempt_sync")
+            "profile_dir", "multihost", "preempt_sync")
 CHUNK_CADENCES = ("save_stats", "test", "save_image", "save_model")
 INV_SCALE = 1 / 0.4  # the logged inverse depth's visibility scale
 
@@ -118,14 +134,11 @@ def log_real_images(trainer: Trainer, logger: RunLogger) -> None:
 def main(argv=None, timings: Optional[Dict[str, float]] = None) -> str:
     """Returns the run directory.  ``timings``, when given, receives the
     wall seconds of the training loop (``train_s``, validation and saves
-    included) and of the validations (``validation_s``)."""
+    included) and of the validations (``validation_s``) of this process."""
     argv = list(sys.argv[1:] if argv is None else argv)
     extras, overrides = {}, []
     for ov in argv:
         key = ov.split("=", 1)[0]
-        if key in NOT_PORTED:
-            raise NotImplementedError(f"{key}= is not yet ported to dusty_gan_torch; "
-                                      "use dusty_gan_tpu.cli.train for it")
         if key in CLI_KEYS:
             extras[key] = ov.split("=", 1)[1]
         else:
@@ -136,10 +149,33 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None) -> str:
     cfg = compose(osp.abspath(config_dir), overrides)
     if cfg.get("resume") and not osp.isabs(cfg.resume):
         cfg.resume = osp.abspath(cfg.resume)
+    requested = cfg.get("num_devices")
+    if extras.get("multihost") in ("1", "true", "True"):
+        with mesh.process_group(device) as device:
+            if requested is not None and int(requested) != mesh.world_size():
+                raise ValueError(f"num_devices={requested} but the process group has "
+                                 f"{mesh.world_size()} ranks")
+            return _train(cfg, extras, device, timings)
+    n = mesh.num_processes(device, requested)
+    if n == 1:
+        return _train(cfg, extras, device, timings)
+    if int(cfg.get("steps_per_call") or 0) > 1:
+        raise NotImplementedError(CHUNKS_IN_GROUP)
+    run_dir = extras.get("run_dir") or run_dir_for(cfg)
+    mesh.spawn(main, n, [ov for ov in argv if not ov.startswith("run_dir=")]
+               + [f"run_dir={run_dir}", "multihost=1"])
+    return run_dir
+
+
+def _train(cfg, extras: Dict[str, str], device, timings: Optional[Dict[str, float]]) -> str:
+    """The training run of this process (rank 0 alone writes)."""
+    is_main, rank = mesh.is_main(), mesh.rank()
+    voting = mesh.distributed()
     run_dir = extras.get("run_dir") or run_dir_for(cfg)
     models_dir = osp.join(run_dir, "models")
-    os.makedirs(models_dir, exist_ok=True)
-    save_config(cfg, run_dir)
+    if is_main:
+        os.makedirs(models_dir, exist_ok=True)
+        save_config(cfg, run_dir)
 
     ckpt = cfg.solver.checkpoint
     K = int(cfg.get("steps_per_call") or 0)
@@ -151,16 +187,20 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None) -> str:
                     f"steps_per_call={K} must divide solver.checkpoint.{name}={c} "
                     "(boundary actions fire only at chunk ends)")
 
-    trainer = Trainer(cfg, device)
-    logger = RunLogger(run_dir, use_wandb=bool(cfg.get("publish_wandb")),
-                       wandb_config=cfg.to_plain())
-    print("run dir:", run_dir)
-    log_real_images(trainer, logger)
+    trainer = Trainer(cfg, device, verbose=is_main)
+    logger = None
+    if is_main:
+        logger = RunLogger(run_dir, use_wandb=bool(cfg.get("publish_wandb")),
+                           wandb_config=cfg.to_plain())
+        print("run dir:", run_dir)
+        log_real_images(trainer, logger)
     total_iteration = int(int(cfg.solver.total_kimg) * 1000 / cfg.solver.batch_size)
     if "total_iterations" in extras:
         total_iteration = min(total_iteration, int(extras["total_iterations"]))
     val_samples = int(extras.get("validate_samples", 0)) or None
-    profile_dir = extras.get("profile_dir")
+    profile_dir = extras.get("profile_dir") if is_main else None
+    preempt_sync = int(extras.get("preempt_sync") or 0) or max(1, min(int(ckpt.save_stats),
+                                                                     100))
     timings = {} if timings is None else timings
     timings.setdefault("validation_s", 0.0)
     imgs_per_iter = trainer.batch_size
@@ -168,7 +208,9 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None) -> str:
     last_log = [time.perf_counter(), start]
 
     def boundary_actions(i: int, scalars) -> None:
-        """Stats, validation and checkpoint due at iteration ``i``."""
+        """Stats, validation and checkpoint due at iteration ``i`` (rank 0)."""
+        if not is_main:
+            return
         step_imgs = i * imgs_per_iter
         if i % int(ckpt.save_stats) == 0 or i == 1:
             values = {k: float(v) for k, v in scalars.items()}  # waits for the step
@@ -196,11 +238,20 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None) -> str:
         if i % int(ckpt.save_model) == 0:
             print("saved:", trainer.save(models_dir, step_imgs))
 
-    def stopped(i: int) -> bool:
-        if stop_requested:
+    def stopped(i: int, agreed=None) -> bool:
+        """Whether to stop after iteration ``i``: on SIGTERM, or in a group
+        on the vote that iteration ``i``'s step returned (``agreed``), read
+        every ``preempt_sync`` iterations on every rank."""
+        if voting:
+            stop = agreed is not None and i % preempt_sync == 0 and float(agreed) > 0.0
+        else:
+            stop = bool(stop_requested)
+        if stop and is_main:
             path = trainer.save(models_dir, i * imgs_per_iter)
             print(f"SIGTERM: checkpointed at iteration {i}: {path}")
-        return bool(stop_requested)
+        elif stop:
+            print(f"SIGTERM vote: rank {rank} stopped at iteration {i}")
+        return stop
 
     stop_requested = []
     prev_handler = signal.signal(signal.SIGTERM, lambda signum, frame: stop_requested.append(signum))
@@ -220,13 +271,14 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None) -> str:
                 boundary_actions(i, scalars)
         else:
             it = trainer.device_iter()
-            prof = None
+            prof, agreed = None, None
             for i in range(start + 1, total_iteration + 1):
-                if stopped(i - 1):
+                if stopped(i - 1, agreed):
                     return run_dir
                 if profile_dir and i == start + 4:
                     prof = profiling.start_trace(device)
-                scalars = trainer.step(i, next(it))
+                scalars = trainer.step(i, next(it), stop=bool(stop_requested))
+                agreed = scalars.pop("stop/agreed", None)
                 if prof is not None and i == start + 8:
                     synchronize(device)
                     path = profiling.stop_trace(prof, profile_dir, f"train_{start + 4}-{i}")
@@ -236,13 +288,15 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None) -> str:
                     if summary is not None:
                         print(profiling.format_summary(summary))
                 boundary_actions(i, scalars)
-        print("saved final:", trainer.save(models_dir, total_iteration * imgs_per_iter))
+        if is_main:
+            print("saved final:", trainer.save(models_dir, total_iteration * imgs_per_iter))
         timings["train_s"] = time.perf_counter() - t_start
         return run_dir
     finally:
         if it is not None:
             it.close()
-        logger.close()
+        if logger is not None:
+            logger.close()
         signal.signal(signal.SIGTERM, prev_handler)
 
 

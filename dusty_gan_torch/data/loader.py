@@ -3,8 +3,8 @@ per-process sharded, drop-last batches, with a prefetch thread so that
 collation overlaps the device step.
 
 * The epoch permutation is ``RandomState(seed + epoch)``; process p of P
-  takes the contiguous slice p of it (fixed at 0 of 1 until multi-GPU
-  training is ported).
+  takes the contiguous slice p of it, in batches of batch_size / P (the
+  trainer's rank of its process group).
 * Item i of epoch e draws its horizontal flip from
   ``default_rng([seed, e, i])`` (``dataset.get``), so the batch stream is
   a function of the position alone: ``iter_from(k)`` yields exactly what

@@ -8,6 +8,13 @@ sides) computes only the blocks that touch the upper triangle and mirrors
 the strict upper triangle onto the lower one, so the lower entries of a
 diagonal block are overwritten exactly as in the JAX package.  COV, MMD and
 1-NNA are then computed on the host with numpy.
+
+``process_shard`` stripes the block-rows over the ranks of a process group
+(``parallel/mesh.py``): block-row ``i // R`` is computed by rank
+``(i // R) % W``, the others leave zeros there, and one gather of the host
+partials, summed, merges them.  Each entry comes from one rank, so the
+merged matrix is the single-process one bit for bit wherever the kernel is
+deterministic.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import torch
 
 from dusty_gan_torch.metrics.chamfer_cuda import cd_block
 from dusty_gan_torch.metrics.emd_cuda import emd_block
+from dusty_gan_torch.parallel import mesh
 
 METRICS = ("cd", "emd")
 
@@ -56,21 +64,28 @@ def _pad_rows(p: torch.Tensor, target: int) -> torch.Tensor:
 
 def blocked_matrix(pcs_1: torch.Tensor, pcs_2: torch.Tensor, R: int, C: int,
                    symmetric: bool, block: Callable, label: str,
-                   verbose: bool = False) -> np.ndarray:
+                   verbose: bool = False, process_shard: bool = False) -> np.ndarray:
     """Fill the (B1, B2) matrix block by block through ``block(rows, cols)
-    -> (R, C)``."""
+    -> (R, C)``; with ``process_shard``, this rank's block-rows, merged
+    with the other ranks'."""
     b1, b2 = pcs_1.shape[0], pcs_2.shape[0]
     b1p, b2p = -(-b1 // R) * R, -(-b2 // C) * C
     rows_all = _pad_rows(pcs_1, b1p)
     cols_all = _pad_rows(pcs_2, b2p)
+    rank, ranks = (mesh.rank(), mesh.world_size()) if process_shard else (0, 1)
     out = torch.zeros((b1p, b2p), dtype=torch.float32, device=pcs_1.device)
     last_i = -1
     for i, j in block_schedule(b1, b2, R, C, symmetric):
+        if (i // R) % ranks != rank:
+            continue  # another rank's block-row
         out[i:i + R, j:j + C] = block(rows_all[i:i + R], cols_all[j:j + C])
         if verbose and i != last_i:
             print(f"pairwise {label}: dispatched {min(i + R, b1)}/{b1}")
             last_i = i
-    out = out.cpu().numpy()[:b1, :b2]
+    out = out.cpu().numpy()
+    if ranks > 1:
+        out = mesh.pod_allgather(out).sum(axis=0)
+    out = out[:b1, :b2]
     if symmetric:
         lower = np.tril_indices(b1, -1)
         out[lower] = out.T[lower]
@@ -78,15 +93,16 @@ def blocked_matrix(pcs_1: torch.Tensor, pcs_2: torch.Tensor, R: int, C: int,
 
 
 def pairwise_cd(pcs_1: torch.Tensor, pcs_2: torch.Tensor, col_chunk: int,
-                verbose: bool = False) -> np.ndarray:
+                verbose: bool = False, process_shard: bool = False) -> np.ndarray:
     """(B1, N, 3), (B2, M, 3) -> (B1, B2) symmetric-CD matrix; symmetric
     when both arguments are the same tensor."""
     R, C = block_dims(pcs_1.shape[0], pcs_2.shape[0], col_chunk)
-    return blocked_matrix(pcs_1, pcs_2, R, C, pcs_1 is pcs_2, cd_block, "cd", verbose)
+    return blocked_matrix(pcs_1, pcs_2, R, C, pcs_1 is pcs_2, cd_block, "cd", verbose,
+                          process_shard)
 
 
 def pairwise_emd(pcs_1: torch.Tensor, pcs_2: torch.Tensor, col_chunk: int,
-                 verbose: bool = False) -> np.ndarray:
+                 verbose: bool = False, process_shard: bool = False) -> np.ndarray:
     """(B1, N, 3), (B2, N, 3) -> (B1, B2) per-point EMD matrix
     (``compute_emd``: the auction cost over N); symmetric when both
     arguments are the same tensor.  EMD is not symmetric in its two clouds,
@@ -97,7 +113,7 @@ def pairwise_emd(pcs_1: torch.Tensor, pcs_2: torch.Tensor, col_chunk: int,
     R, C = block_dims(pcs_1.shape[0], pcs_2.shape[0], col_chunk)
     return blocked_matrix(pcs_1, pcs_2, R, C, pcs_1 is pcs_2,
                           lambda rows, cols: emd_block(rows, cols) / float(n),
-                          "emd", verbose)
+                          "emd", verbose, process_shard)
 
 
 PAIRWISE = {"cd": pairwise_cd, "emd": pairwise_emd}
@@ -161,20 +177,23 @@ def check_metrics(metrics: Tuple[str, ...]) -> None:
 def compute_cov_mmd_1nna(pcs_gen: torch.Tensor, pcs_ref: torch.Tensor,
                          batch_size: int, metrics: Tuple[str, ...] = ("cd",),
                          verbose: bool = False,
-                         timings: Optional[Dict[str, float]] = None) -> Dict[str, float]:
+                         timings: Optional[Dict[str, float]] = None,
+                         process_shard: bool = False) -> Dict[str, float]:
     """{cov,mmd,mmd-sample}-<metric> and 1-nn-*-<metric> scores of generated
     clouds against reference clouds, both (B, N, 3) on one device, for each
     metric of ``metrics`` ("cd", "emd").  ``timings``, when given, receives
     the wall seconds of each metric's three matrices and its scores as
-    ``pairwise_<metric>``."""
+    ``pairwise_<metric>``.  ``process_shard``: every rank of the process
+    group calls this with the same clouds, and the matrices' block-rows are
+    striped over the ranks."""
     check_metrics(tuple(metrics))
     results: Dict[str, float] = {}
     for metric in metrics:
         pairwise = PAIRWISE[metric]
         t = time.perf_counter()
-        m_rr = pairwise(pcs_ref, pcs_ref, batch_size, verbose)
-        m_rg = pairwise(pcs_ref, pcs_gen, batch_size, verbose)
-        m_gg = pairwise(pcs_gen, pcs_gen, batch_size, verbose)
+        m_rr = pairwise(pcs_ref, pcs_ref, batch_size, verbose, process_shard)
+        m_rg = pairwise(pcs_ref, pcs_gen, batch_size, verbose, process_shard)
+        m_gg = pairwise(pcs_gen, pcs_gen, batch_size, verbose, process_shard)
         for k, v in _compute_cov_mmd(m_rg).items():
             results[f"{k}-{metric}"] = v
         for k, v in _compute_nna(m_rr, m_rg, m_gg).items():

@@ -99,17 +99,22 @@ def path_length_noise(shape, generator: Optional[torch.Generator] = None,
 
 
 def path_length_penalty(g_depth_apply: Callable, z: torch.Tensor, noise: torch.Tensor,
-                        pl_ema: torch.Tensor, decay: float = 0.01
+                        pl_ema: torch.Tensor, decay: float = 0.01,
+                        batch_mean: Optional[Callable] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """StyleGAN2 path-length regularisation.  ``g_depth_apply`` maps latents
     to depth images (B, C, H, W); ``noise`` is ``path_length_noise`` of that
     shape.  Returns (penalty, new pl_ema), pl_ema lerped toward the batch's
-    mean path length by ``decay`` and carrying no gradient."""
+    mean path length by ``decay`` and carrying no gradient.  ``batch_mean``
+    maps this batch's mean to the global batch's (over ranks)."""
     z = z.detach().float().requires_grad_(True)
     x = g_depth_apply(z)
     (grads,) = torch.autograd.grad((x * noise.to(x.dtype)).sum(), z, create_graph=True)
     pl_lengths = torch.sqrt((grads.float() ** 2).sum(dim=-1))
-    new_ema = (pl_ema + (pl_lengths.mean() - pl_ema) * decay).detach()
+    mean = pl_lengths.mean().detach()
+    if batch_mean is not None:
+        mean = batch_mean(mean)
+    new_ema = (pl_ema + (mean - pl_ema) * decay).detach()
     return ((pl_lengths - new_ema) ** 2).mean(), new_ema
 
 

@@ -25,6 +25,19 @@ host read of a device value, and the state is updated in place (the
 parameters, the optimizer state, G_ema and ``pl_ema``); ``lr`` passes
 each update's learning rate where the optimizer's count lives on the
 card.
+
+In a process group (``parallel/mesh.py``) each rank steps on its
+``local_batch_slice`` of the global batch with its rows of the global
+draws (``local_draws``); each phase's gradients are averaged over ranks
+(one all-reduce of one flat bucket) before its optimizer's update, the
+path-length baseline takes the mean path length over ranks, and the
+logged scalars become global means through one all-reduce of a stacked
+vector that also carries this rank's stop flag (``stop/agreed`` in the
+result: above 0 when any rank asked to stop).  Parameters, optimizer state
+and G_ema then stay equal on every rank.  Without a group the step issues
+no collective.  The relativistic modes compare each logit with the mean
+of the other side over the batch, which the ranks do not share, so they
+raise in a group of more than one rank.
 """
 
 from __future__ import annotations
@@ -41,6 +54,7 @@ from dusty_gan_torch.models.dusty import DUSty1, DUSty2
 from dusty_gan_torch.ops.diff_augment import DEFAULT_POLICY as AUGMENT_POLICY
 from dusty_gan_torch.ops.diff_augment import diff_augment, draw_augment
 from dusty_gan_torch.ops.gumbel import logistic_noise
+from dusty_gan_torch.parallel import mesh
 from dusty_gan_torch.train.state import TrainState, ema_update, scheduled_step
 
 # the path-length penalty's batch divisor and baseline EMA rate (the
@@ -124,6 +138,40 @@ def sample_draws(generator: torch.Generator, device, G, *, rounds: int, b: int,
     return out
 
 
+def _map_rows(fn, *trees):
+    """``fn`` over the tensors of equally shaped draw trees (dicts, lists,
+    tuples, tensors; anything else, such as an op name or None, is taken
+    from the first tree)."""
+    t = trees[0]
+    if isinstance(t, torch.Tensor):
+        return fn(*trees)
+    if isinstance(t, dict):
+        return {k: _map_rows(fn, *(x[k] for x in trees)) for k in t}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_map_rows(fn, *xs) for xs in zip(*trees))
+    return t
+
+
+def local_draws(draws: List[RoundDraws], process_index: int,
+                process_count: int) -> List[RoundDraws]:
+    """This rank's rows of an iteration's global draws: the A rounds are
+    joined into one global batch, its ``local_batch_slice`` is kept and
+    split into A local rounds, so that global row p meets the same draws at
+    every world size.  The path-length rows are sliced round by round
+    instead: they pair with no data row, and ``pl_ema`` is carried from
+    round to round, so local round r must hold global round r's rows."""
+    A = len(draws)
+    rows = lambda x: x[mesh.local_batch_slice(x.shape[0], process_index,  # noqa: E731
+                                              process_count)]
+    fields = [f.name for f in dataclasses.fields(RoundDraws) if f.name != "pl"]
+    joined = {f: _map_rows(lambda *xs: torch.cat(xs), *(getattr(d, f) for d in draws))
+              for f in fields}
+    local = _map_rows(rows, joined)
+    return [RoundDraws(**_map_rows(lambda x: x.reshape(A, -1, *x.shape[1:])[r], local),
+                       pl=_map_rows(rows, draws[r].pl))
+            for r in range(A)]
+
+
 def _mean_scalars(rounds: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
     if len(rounds) == 1:
         return rounds[0]
@@ -154,6 +202,11 @@ class TrainStep:
         self.ema_decay = float(ema_decay)
         self.batch_size = int(batch_size)
         self.cdt = policy.compute_dtype
+        self.distributed = mesh.distributed()
+        if self.relativistic and mesh.world_size() > 1:
+            raise NotImplementedError(
+                f"gan_mode={gan_mode} over {mesh.world_size()} ranks: a relativistic "
+                "loss needs the other side's mean over the global batch")
 
     @property
     def use_pl(self) -> bool:
@@ -193,7 +246,9 @@ class TrainStep:
         if self.use_pl:
             z_pl, noise, gumbel_pl = d.pl
             g_depth = lambda zz: apply_g(G, zz, gumbel_pl, self.cdt)["depth"]  # noqa: E731
-            pl_pen, pl_ema = losses.path_length_penalty(g_depth, z_pl, noise, pl_ema, PL_DECAY)
+            pl_pen, pl_ema = losses.path_length_penalty(
+                g_depth, z_pl, noise, pl_ema, PL_DECAY,
+                batch_mean=_rank_mean if self.distributed else None)
             loss = loss + self.w_pl * pl_pen
             scalars["loss/G/path_length"] = pl_pen
             scalars["loss/G/path_length/baseline"] = pl_ema
@@ -202,10 +257,17 @@ class TrainStep:
     def _backward(self, loss):
         (loss / self.A if self.A > 1 else loss).backward()
 
+    def _reduce_grads(self, optimizer) -> None:
+        if self.distributed:
+            mesh.all_reduce_mean_([p.grad for g in optimizer.param_groups
+                                   for p in g["params"] if p.grad is not None])
+
     def __call__(self, state: TrainState, batch: Dict[str, torch.Tensor],
-                 draws: List[RoundDraws], lr=None) -> Dict[str, torch.Tensor]:
+                 draws: List[RoundDraws], lr=None, stop: bool = False
+                 ) -> Dict[str, torch.Tensor]:
         """``lr``: None (each optimizer's schedule at its update count) or
-        the (D, G) learning rates of this update."""
+        the (D, G) learning rates of this update.  ``stop``: this rank's
+        stop flag, voted on in a process group."""
         if len(draws) != self.A:
             raise ValueError(f"{len(draws)} rounds of draws for {self.A} rounds")
         G, D = state.G, state.D
@@ -220,6 +282,7 @@ class TrainStep:
             loss, scalars = self._d_round(D, xs_real[r], xs_fake[r], d)
             self._backward(loss)
             d_scalars.append({k: v.detach() for k, v in scalars.items()})
+        self._reduce_grads(state.opt_D)
         scheduled_step(state.opt_D, state.schedule_D, None if lr is None else lr[0])
 
         # G phase against the updated D; D's parameters take no gradient
@@ -233,10 +296,26 @@ class TrainStep:
                 g_scalars.append({k: v.detach() for k, v in scalars.items()})
         finally:
             D.requires_grad_(True)
+        self._reduce_grads(state.opt_G)
         scheduled_step(state.opt_G, state.schedule_G, None if lr is None else lr[1])
 
         ema_update(state.G_ema, G, self.ema_decay)
         if pl_ema is not state.pl_ema:
             state.pl_ema.copy_(pl_ema)
         state.step += self.batch_size
-        return {**_mean_scalars(d_scalars), **_mean_scalars(g_scalars)}
+        scalars = {**_mean_scalars(d_scalars), **_mean_scalars(g_scalars)}
+        if self.distributed:
+            # a fill, not a copy from the host: the host does not wait for
+            # the step's work
+            flag = torch.full((), float(stop), device=x_real.device)
+            vec = torch.stack([v.float() for v in scalars.values()] + [flag])
+            mesh.all_reduce_mean_([vec])
+            scalars = dict(zip(list(scalars) + ["stop/agreed"], vec.unbind()))
+        return scalars
+
+
+def _rank_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of a detached 0-d tensor over ranks."""
+    out = x.detach().reshape(1).clone()
+    mesh.all_reduce_mean_([out])
+    return out[0]

@@ -35,6 +35,14 @@ the loader's host batches, copied from pinned memory without a host wait
 and each step sends only its indices (``data/device_cache.py``).  Either
 way the batch stream is a function of the iteration alone.
 
+Ranks (``parallel/mesh.py``): in a process group of W ranks each rank
+holds the same state and trains on its ``local_batch_slice`` of the
+global batch of ``solver.batch_size`` (its ``Loader`` shard, or its rows
+of the device cache, which holds the whole split on every card), with its
+rows of the iteration's global draws; the step averages the gradients.
+Validation, image logging and checkpoints are the caller's to run on rank
+0 alone; ``validation`` issues no collective.
+
 Chunks (``steps_per_call=K``, K > 1, which needs ``cache_device=true``):
 ``step_chunk`` runs k consecutive iterations on their device-cache rows
 (``train/graphs.py``): on CUDA through one captured CUDA graph per chunk
@@ -64,14 +72,18 @@ from dusty_gan_torch.metrics.jsd import compute_jsd
 from dusty_gan_torch.metrics.swd import TorchDraws, compute_swd
 from dusty_gan_torch.models.dusty import DUSty1, DUSty2
 from dusty_gan_torch.models.factory import define_D, define_G
+from dusty_gan_torch.parallel import mesh
 from dusty_gan_torch.train.checkpoint import (checkpoint_name, restore_checkpoint,
                                               save_checkpoint)
 from dusty_gan_torch.train.graphs import ChunkRunner
 from dusty_gan_torch.train.state import create_train_state
-from dusty_gan_torch.train.step import TrainStep, fetch_reals, sample_draws
+from dusty_gan_torch.train.step import (PL_BATCH_SHRINK, TrainStep, fetch_reals,
+                                        local_draws, sample_draws)
 from dusty_gan_torch.utils.postprocess import postprocess
 
 TRAIN_STREAM, VALIDATION_STREAM, FIXED_LATENT_STREAM, GENERATE_STREAM = 0, 1, 2, 3
+CHUNKS_IN_GROUP = ("steps_per_call > 1 in a process group (num_devices > 1 or multihost) "
+                   "is not supported yet: see ROADMAP.md, chunk mode at world size > 1")
 LOGGED_SAMPLES = 16  # latents of the logged samples, at most
 
 
@@ -104,6 +116,9 @@ class Trainer:
             raise ValueError(
                 "steps_per_call needs cache_device=true (the scan body "
                 "gathers batches from the device-resident dataset)")
+        if self.steps_per_call > 1 and mesh.distributed():
+            raise NotImplementedError(CHUNKS_IN_GROUP)
+        self.rank, self.world = mesh.rank(), mesh.world_size()
         self.cfg = cfg
         self.device = device
         self.policy = policy_from_cfg(bool(cfg.get("enable_amp", True)))
@@ -130,9 +145,14 @@ class Trainer:
         solver = cfg.solver
         self.batch_size = int(solver.batch_size)
         self.num_accumulation = int(solver.get("num_accumulation", 1))
-        if self.batch_size % self.num_accumulation:
+        if self.batch_size % (self.num_accumulation * self.world):
             raise ValueError(f"batch {self.batch_size} does not split into "
-                             f"{self.num_accumulation} accumulation rounds")
+                             f"{self.num_accumulation} accumulation rounds on each "
+                             f"of {self.world} ranks")
+        pl_rows = self.batch_size // self.num_accumulation // PL_BATCH_SHRINK
+        if float(solver.loss.get("pl", 0.0)) > 0.0 and pl_rows % self.world:
+            raise ValueError(f"the path-length batch of {pl_rows} a round does not split "
+                             f"over {self.world} ranks")
         self.ema_decay = 0.5 ** (self.batch_size / (float(solver.smoothing_kimg) * 1000.0))
         lr = solver.lr
         decay = lr.alpha.get("decay") or {}
@@ -151,7 +171,8 @@ class Trainer:
                 f"batch_size = {self.batch_size}; reduce solver.batch_size or add "
                 f"data (root={cfg.dataset.root})")
         self.loader = Loader(self.dataset, self.batch_size, shuffle=True, drop_last=True,
-                             seed=self.seed, keys=("depth",))
+                             seed=self.seed, process_index=self.rank,
+                             process_count=self.world, keys=("depth",))
         self.val_dataset = define_dataset(cfg.dataset, phase="val", cache_dir=cache_dir)
         self.val_loader = Loader(self.val_dataset, self.batch_size)
         self.device_cache = (DeviceDatasetCache(self.loader, device, keys=("depth",))
@@ -188,7 +209,8 @@ class Trainer:
                       f"{self.device_cache.nbytes / 1e6:.1f} MB")
             n = sum(p.numel() for p in self.state.G.parameters())
             print(f"device: {device}, G params: {n:,}, batch {self.batch_size} x accum "
-                  f"{self.num_accumulation}, ema decay {self.ema_decay:.6f}")
+                  f"{self.num_accumulation}, ema decay {self.ema_decay:.6f}"
+                  + (f", {self.world} ranks" if self.world > 1 else ""))
 
     # ------------------------------------------------------------------
     def to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -230,20 +252,23 @@ class Trainer:
             it.close()
 
     def draws(self, i: int):
-        """Every draw of iteration ``i``."""
+        """Every draw of iteration ``i`` for the global batch; in a group of
+        more than one rank, this rank's rows of them."""
         g = torch.Generator(device=self.device)
         g.manual_seed(derived_seed(self.seed, TRAIN_STREAM, i))
-        return sample_draws(
+        draws = sample_draws(
             g, self.device, self.state.G, rounds=self.num_accumulation,
             b=self.batch_size // self.num_accumulation, in_ch=self.in_ch, shape=self.shape,
             augment_policy=self.augment_policy,
             relativistic=self.train_step.relativistic, use_pl=self.train_step.use_pl)
+        return local_draws(draws, self.rank, self.world) if self.world > 1 else draws
 
-    def step(self, i: int, batch) -> Dict[str, torch.Tensor]:
-        """Iteration ``i`` (1-based) on a host or device batch."""
+    def step(self, i: int, batch, stop: bool = False) -> Dict[str, torch.Tensor]:
+        """Iteration ``i`` (1-based) on a host or device batch (this rank's
+        rows); ``stop`` is this rank's stop flag, voted on in a group."""
         if isinstance(batch["depth"], np.ndarray):
             batch = self.to_device(batch)
-        return self.train_step(self.state, batch, self.draws(i))
+        return self.train_step(self.state, batch, self.draws(i), stop=stop)
 
     def step_chunk(self, iters, rows: np.ndarray, draws=None) -> Dict[str, torch.Tensor]:
         """Consecutive iterations ``iters`` (1-based) in one call: ``rows``

@@ -2,8 +2,7 @@
 tree: the JSON key set equals the JAX CLI's on the same reference-format
 .pth, with --metrics cd,emd and with --calibrate-drop-rate too, the scores
 do not depend on the batch size, the CLI refuses to run without a GPU
-unless --device cpu is given, --multihost (not yet ported) and unknown
-metrics raise, and no module of the port (nor chip_smoke.py) imports JAX
+unless --device cpu is given, unknown metrics raise, and no module of the port (nor chip_smoke.py) imports JAX
 or the JAX package."""
 
 import glob
@@ -109,12 +108,6 @@ def test_refuses_cpu_fallback_without_gpu(run):
         pytest.skip("this host has a GPU")
     with pytest.raises(RuntimeError, match="GPU"):
         main(_args(run))
-
-
-@pytest.mark.parametrize("flag", [["--multihost"]])
-def test_unported_flags_raise(run, flag):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        main(_args(run, "--device", "cpu", *flag))
 
 
 def test_emd_key_set_equals_jax_cli(run, tmp_path, monkeypatch):

@@ -430,11 +430,6 @@ def test_cli_max_batches_and_short_last_batch(cli_run, tmp_path):
     assert all(np.isfinite(full[k]).all() for k in full)
 
 
-def test_cli_multihost_not_ported(cli_run, tmp_path):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        er.main(_cli_args(cli_run, tmp_path, "--device", "cpu", "--multihost"))
-
-
 def test_cli_refuses_cpu_fallback_without_gpu(cli_run, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU")

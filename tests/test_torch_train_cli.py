@@ -2,7 +2,7 @@
 writes its config, scalars (loss/D/*, score/*) and reference-format
 checkpoints; a run resumed from a mid-run checkpoint ends bit-identical to
 the uninterrupted run; the CLI refuses to run without a GPU unless
-device=cpu; each not-yet-ported key raises.  Chunk mode
+device=cpu.  Chunk mode
 (``steps_per_call``): it raises the JAX CLI's errors without
 ``cache_device`` or when K does not divide a cadence; a chunk run logs
 the per-step run's scalars at the same steps (iteration 1 apart, which
@@ -139,12 +139,6 @@ def test_refuses_cpu_fallback_without_gpu(root, tmp_path):
         pytest.skip("this host has a GPU")
     with pytest.raises(RuntimeError, match="GPU"):
         main([*TINY, f"dataset.root={root}", f"run_dir={tmp_path}", "total_iterations=1"])
-
-
-@pytest.mark.parametrize("key", ["multihost=1", "preempt_sync=5"])
-def test_unported_keys_raise(root, tmp_path, key):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        _run(root, str(tmp_path), "total_iterations=1", key)
 
 
 def _jax_template(root):

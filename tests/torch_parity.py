@@ -3,8 +3,14 @@ JAX-initialised generators and discriminators carried into the port, numpy
 noise, the JAX package's SWD draws in the form the port's ``compute_swd``
 takes, the DiffAugment draws that ``dusty_gan_tpu.ops.diff_augment`` takes
 from a key, in the form the port's ``diff_augment`` takes, and the
-one-train-step comparison of ``test_torch_train_step*.py``."""
+one-train-step comparison of ``test_torch_train_step*.py``, and
+``launch_ranks``, which starts the processes of a gloo process group on
+the CPU for the multi-process tests."""
 
+import os
+import os.path as osp
+import subprocess
+import sys
 import types
 
 import jax
@@ -33,6 +39,7 @@ from dusty_gan_torch.models.dcgan_eqlr import Discriminator, Generator
 from dusty_gan_torch.models.dusty import DUSty1, DUSty2
 from dusty_gan_torch.ops.diff_augment import DEFAULT_POLICY as AUGMENT_POLICY
 from dusty_gan_torch.ops.diff_augment import cutout_size, translation_shifts
+from dusty_gan_torch.parallel import mesh
 from dusty_gan_torch.train.state import create_train_state
 from dusty_gan_torch.train.step import PL_BATCH_SHRINK, RoundDraws, TrainStep
 from dusty_gan_torch.utils.weights import (adam_state_dict, discriminator_state_dict,
@@ -251,6 +258,10 @@ STEP_CASES = {
                       (1.0, 1), 1),
     "dusty2_ragan_pl": ("dusty2/dcgan_eqlr", 1, "ragan", {"gan": 1.0, "gp": 1.0, "pl": 2.0},
                         (1.0, 1), 1),
+    # two accumulation rounds with the path-length baseline carried across
+    # them (held on two ranks, test_torch_multigpu.py)
+    "dusty2_accum2_pl": ("dusty2/dcgan_eqlr", 2, "nsgan", {"gan": 1.0, "gp": 1.0, "pl": 2.0},
+                         (1.0, 1), 2),
     # from random Adam moments after 3 updates, carried by adam_state_dict:
     # the learning rate halves between the two steps (updates 3 and 4)
     "plain_decay": ("none/dcgan_eqlr", 1, "hinge", {"gan": 1.0, "gp": 0.5, "pl": 0.0},
@@ -361,16 +372,24 @@ def assert_moments(opt, module, mu_sd, nu_sd, count, what):
                                        err_msg=f"{what} {m} {name}")
 
 
-def update_slack(nu_sd, steps):
+def update_slack(nu_sd, steps, grads=None):
     """Per-entry slack of the parameter hold: Adam's update
     g / (|g| + eps) moves by eps * dg / (|g| + eps)^2 for a gradient error
     dg, at most 2; dg is the moment tolerance, |g| read from JAX's second
     moment.  Negligible where |g| >> sqrt(eps * dg), up to 2 lr a step where
-    the gradient's sign is below the tolerance."""
+    the gradient's sign is below the tolerance.  ``grads``, where each
+    step's gradients are known (one dict a step, keyed as ``nu_sd``): the
+    slack summed step by step at each step's own |g|; the second moment
+    after several steps hides a step whose gradient lay in eps's range
+    behind a larger one."""
     g = {k: (v / (1 - BETA2)).sqrt() for k, v in nu_sd.items()}
     dg = moment_atol(g)
-    return {k: LR * steps * torch.clamp(EPS * dg / (v + EPS) ** 2, max=2.0)
-            for k, v in g.items()}
+    if grads is None:
+        return {k: LR * steps * torch.clamp(EPS * dg / (v + EPS) ** 2, max=2.0)
+                for k, v in g.items()}
+    assert len(grads) == steps
+    return {k: sum(LR * torch.clamp(EPS * dg / (step[k].abs() + EPS) ** 2, max=2.0)
+                   for step in grads) for k in g}
 
 
 def assert_module(module, want_sd, nu_sd, steps, what):
@@ -386,9 +405,10 @@ def assert_module(module, want_sd, nu_sd, steps, what):
                                      f"max {float((got[k] - want).abs().max())}")
 
 
-def run_step_case(name):
-    """Run ``STEP_CASES[name]`` in both frameworks from the same state, batch
-    and draws."""
+def jax_step_case(name, jit=False):
+    """``STEP_CASES[name]`` run in JAX, with the port's step and its state at
+    the start (the same G, D, G_ema and optimizer state), and each step's
+    batch and draws in the port's form (``jit``: see ``recorded_gumbel``)."""
     arch, A, mode, lw, (gamma, step_size), steps, *opts = STEP_CASES[name]
     opts = opts[0] if opts else {}
     beta1 = opts.get("beta1", BETA1)
@@ -422,17 +442,27 @@ def run_step_case(name):
     step = TrainStep(Lidar.from_angle_array(step_angles(), (SH, SW), 0.9, 120.0), gan_mode=mode,
                      loss_weight=lw, num_accumulation=A, ema_decay=ema_decay,
                      batch_size=BATCH, policy=FP32_POLICY)
-    scalars = []
+    inputs, jscalars = [], []
     for i in range(steps):
         key = jax.random.PRNGKey(10 + i)
         depth = depth_batch(i)
         draws = jax_step_draws(key, Gj, jstate.params_G, A, BATCH // A,
-                               step.relativistic, step.use_pl)
+                               step.relativistic, step.use_pl, jit=jit)
         jstate, jsc = jstep(jstate, {"depth": jnp.asarray(depth)}, key)
-        sc = step(state, {"depth": nchw(depth)}, draws)
-        scalars.append((sc, jsc))
-    return types.SimpleNamespace(arch=arch, state=state, jstate=jstate, scalars=scalars,
-                                 steps=steps, updates=opts.get("init_count", 0) + steps)
+        inputs.append(({"depth": nchw(depth)}, draws))
+        jscalars.append(jsc)
+    return types.SimpleNamespace(arch=arch, state=state, step=step, inputs=inputs,
+                                 jstate=jstate, jscalars=jscalars, steps=steps,
+                                 updates=opts.get("init_count", 0) + steps)
+
+
+def run_step_case(name):
+    """Run ``STEP_CASES[name]`` in both frameworks from the same state, batch
+    and draws."""
+    case = jax_step_case(name)
+    case.scalars = [(case.step(case.state, batch, draws), jsc)
+                    for (batch, draws), jsc in zip(case.inputs, case.jscalars)]
+    return case
 
 
 def random_adam(opt_state, count, seed):
@@ -484,3 +514,62 @@ def check_step_adam(case):
                        type(module).__name__)
     assert state.step == int(jstate.step) == case.steps * BATCH
     np.testing.assert_allclose(float(state.pl_ema), float(jstate.pl_ema), rtol=1e-5)
+
+
+REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
+# a child's sitecustomize: keep TensorBoard (whose import pulls TensorFlow,
+# ~15 s) out of every process started with ``rank_env``, spawned
+# grandchildren included
+NO_TENSORBOARD = 'import sys; sys.modules["torch.utils.tensorboard"] = None\n'
+
+
+def rank_env(shim_dir, **extra) -> dict:
+    """The environment of a test's child processes: the repo importable,
+    torch on one thread, TensorBoard kept out; ``extra`` on top."""
+    shim = osp.join(str(shim_dir), "sitecustomize.py")
+    if not osp.exists(shim):
+        os.makedirs(str(shim_dir), exist_ok=True)
+        with open(shim, "w") as f:
+            f.write(NO_TENSORBOARD)
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([str(shim_dir), REPO,
+                                           os.environ.get("PYTHONPATH", "")]))
+    env.update({k: str(v) for k, v in extra.items()})
+    return env
+
+
+def launch_ranks(args, shim_dir, world: int = 2):
+    """Start ``python *args`` as ranks 0..world-1 of one gloo group on a
+    free local port (the environment torchrun sets); returns the Popen
+    objects, output piped as text."""
+    port = mesh.free_port()
+    return [subprocess.Popen(
+        [sys.executable, *args], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=rank_env(shim_dir, RANK=r, LOCAL_RANK=r, WORLD_SIZE=world,
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=port))
+        for r in range(world)]
+
+
+def wait_ranks(procs, timeout: float = 120.0):
+    """Each rank's (exit code, output); kills every rank still running
+    when ``timeout`` runs out."""
+    out = []
+    try:
+        for p in procs:
+            text, _ = p.communicate(timeout=timeout)
+            out.append((p.returncode, text))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return out
+
+
+def run_ranks(args, shim_dir, world: int = 2, timeout: float = 120.0):
+    """``launch_ranks`` and wait; asserts every rank exited 0 and returns
+    their outputs."""
+    res = wait_ranks(launch_ranks(args, shim_dir, world), timeout)
+    assert all(code == 0 for code, _ in res), "\n".join(
+        f"rank {r} exited {code}:\n{text[-3000:]}" for r, (code, text) in enumerate(res))
+    return [text for _, text in res]
