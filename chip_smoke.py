@@ -81,13 +81,15 @@
    scan, card against CPU, image and gradient.
 6. Trains through CUDA-graph chunks (``steps_per_call``): (a) graph
    against eager at full width (DUSty-II, batch 32, R1, DiffAugment, the
-   device cache), under bf16 and under float32: three eager trainers and
+   device cache), under bf16 and under float32, with cuDNN's
+   deterministic algorithms: three eager trainers (the per-step path) and
    one in chunks of 4 from one seed for 17 iterations (a chunk of 1, then
    the CLI's schedule from iteration 2: 3, 4, 4, 4, 1), eager against
    eager, then graph against its nearest eager run after iterations 1 and
    4 (the JAX package's state envelope) and on the scalars at the end,
    each bound the larger of the JAX one and twice the eager runs' spread;
-   the replays must cover every chunked iteration; (b) ms a step for K = 1 (eager), 2, 4, 8, 16
+   the replays must cover every chunked iteration; (b) ms a step for K = 1
+   (eager, with Adam's default and capturable updates, each twice), 2, 4, 8, 16
    by CUDA events over 64 iterations, capture seconds, peak memory, the
    host's launches a step outside the graphs, and device busy time and
    idle share from torch.profiler; (c) ``cli.train ... cache_device=true
@@ -119,11 +121,28 @@
    --multihost`` on two ranks sharing the card (two batches of 64 scans,
    100 steps): the rows held to the single-process run by twice the
    spread of two single-process runs; the host merges' seconds.
-7. Checks the scores (every key, finite) and, on small inputs, the card's
+7. Exports and serves the generator (``dusty_gan_torch/utils/export.py``):
+   ``dusty_gan_torch.cli.export`` on the card for the full-width DUSty-II
+   .pth, at bf16 and float32 with a dynamic batch and at bf16 with a
+   fixed batch of 64, each with its own reload self-test; the reloaded
+   ``torch.export`` artifact held bit for bit against the eager serving
+   generator under cuDNN's deterministic algorithms at batches 1, 8 and
+   64 (the fixed one at 64, and a batch of 63 refused), with the export,
+   load and first-call seconds, ``artifact_bytes``, and the artifact's ms
+   a call at batches 1 and 64 by CUDA events under cuDNN's default and
+   deterministic algorithms (the server's) beside the eager generator's;
+   then ``dusty_gan_torch.cli.serve``'s server on the dynamic bf16
+   artifact in a thread: ``/healthz``, ``/generate`` at batches 1, 8 and
+   64 in npz and JSON with seeded and client latents, each response
+   equal to the service's own call on the same z, a
+   malformed request answered 400, and the request latency p50/p90 over
+   50 requests at batches 1 and 64; the fixed-batch service pads a batch
+   of 8 and refuses 65.
+8. Checks the scores (every key, finite) and, on small inputs, the card's
    scores, pairwise EMD matrices, generator output and inversion against
    the CPU, and one
    inversion step's bf16 gradient for z against float32 on the card.
-8. Prints a JSON line of per-kernel numbers (K1's with its training-path
+9. Prints a JSON line of per-kernel numbers (K1's with its training-path
    launches under ``training``, its chunk-mode CLI's under
    ``training_chunks`` and its tolerance-tuning launches under
    ``tune_tolerance``; K3's from the demo, its launches, times and bound at
@@ -144,6 +163,7 @@ import csv
 import gc
 import glob
 import importlib.util
+import io
 import json
 import math
 import os
@@ -152,7 +172,10 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -162,11 +185,13 @@ from torch.utils.flop_counter import flop_registry
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
-from dusty_gan_torch import kernels  # noqa: E402
+from dusty_gan_torch import deterministic_convolutions, kernels  # noqa: E402
 from dusty_gan_torch.cli import demo  # noqa: E402
 from dusty_gan_torch.cli import evaluate_reconstruction as er  # noqa: E402
+from dusty_gan_torch.cli import export as export_cli  # noqa: E402
 from dusty_gan_torch.cli import evaluate_synthesis as es  # noqa: E402
 from dusty_gan_torch.cli import process_kitti  # noqa: E402
+from dusty_gan_torch.cli import serve  # noqa: E402
 from dusty_gan_torch.cli import train as train_cli  # noqa: E402
 from dusty_gan_torch.cli import tune_tolerance  # noqa: E402
 from dusty_gan_torch.config import compose, save_config  # noqa: E402
@@ -196,7 +221,8 @@ from dusty_gan_torch.train.step import TrainStep, local_draws  # noqa: E402
 from dusty_gan_torch.train.trainer import Trainer  # noqa: E402
 from dusty_gan_torch.utils import profiling  # noqa: E402
 from dusty_gan_torch.utils.postprocess import postprocess  # noqa: E402
-from dusty_gan_torch.utils.setup import make_eval_generator, make_fixed_noise  # noqa: E402
+from dusty_gan_torch.utils.export import ServingGenerator, load_exported, resolve_dtype  # noqa: E402
+from dusty_gan_torch.utils.setup import make_eval_generator, make_fixed_noise, setup  # noqa: E402
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3, FP32 outside the
 # tensor cores, dense bf16 in them
@@ -2043,12 +2069,15 @@ GRAPH_K, GRAPH_ITERS, GRAPH_EAGER_RUNS = 4, 17, 3
 # 2.2 lr (Adam's first update is +-lr wherever a gradient's sign sits
 # below the two programs' rounding); the scalars after the run within
 # rtol 5e-2 / atol 5e-3.  Those bounds were set on the CPU, whose
-# reductions repeat; the card's eager step does not (cuDNN's and the
-# reflection pad's backward reduce with atomics), and two eager runs part
-# by as much (measured on an H100: 0.19-0.23% of a leaf's elements after
-# one bf16 step, up to 8.4x the scalar hold after 17).  So the graph is
-# held against its nearest eager run, each bound the larger of the JAX one
-# and twice the largest spread between the eager runs.
+# reductions repeat.  On the card, cuDNN's default engines for the step's
+# float32 convolutions (``dgrad_engine``, ``wgrad_alg0_engine``: the ConvTs'
+# forward and weight gradients) sum with atomics, so two eager runs of one
+# step part by up to 0.24% of a leaf's elements (measured on an H100), and
+# further with each iteration.  The phase runs under cuDNN's deterministic
+# algorithms (``deterministic_convolutions``), where the eager runs repeat
+# bit for bit.  The graph is held against its nearest eager run, each
+# bound the larger of the JAX one and twice the largest spread between the
+# eager runs (0 under the pin: the JAX bounds).
 GRAPH_ATOL, GRAPH_RTOL, GRAPH_LOOSE_SHARE, GRAPH_LR_BOUND = 1e-4, 2e-3, 1e-3, 2.2 * 2e-3
 GRAPH_SCALAR_RTOL, GRAPH_SCALAR_ATOL, GRAPH_SPREAD_FACTOR = 5e-2, 5e-3, 2.0
 # (b) ms a step for each K (1: the eager per-step path), over CHUNK_TIMED
@@ -2109,10 +2138,12 @@ def envelope(got: dict, want: dict) -> dict:
             "jax_envelope_holds": worst_share < GRAPH_LOOSE_SHARE and worst_diff <= GRAPH_LR_BOUND}
 
 
+@deterministic_convolutions()
 def graph_against_eager(dev, root: str, amp: bool) -> dict:
     """Phase (a): full-width DUSty-II, batch 32, R1, DiffAugment, the
-    device cache, under bf16 (``amp``) or float32; GRAPH_EAGER_RUNS eager
-    trainers and one in chunks of K = 4 from one seed, GRAPH_ITERS
+    device cache, under bf16 (``amp``) or float32 and cuDNN's
+    deterministic algorithms; GRAPH_EAGER_RUNS eager trainers (the
+    per-step path) and one in chunks of K = 4 from one seed, GRAPH_ITERS
     iterations each.  Eager against eager, then graph against its nearest
     eager run: the JAX package's state envelope after iteration 1 and
     after the first chunk of 3 (iteration 4), the scalars against the JAX
@@ -2207,14 +2238,20 @@ def device_profile(prof, iterations: int, wall_ms: float) -> dict:
             "graph_launches": graph_launches, "profiled_wall_ms_per_step": wall_ms / iterations}
 
 
-def time_chunk_size(dev, root: str, K: int, eager_ops) -> dict:
-    """ms a step and the rest of phase (b) at one K."""
+def time_chunk_size(dev, root: str, K: int, eager_ops, default_adam: bool = False) -> dict:
+    """ms a step and the rest of phase (b) at one K; ``default_adam``
+    (K = 1): the per-step path with Adam's default update in place of the
+    capturable one the trainer steps on CUDA."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.reset_peak_memory_stats()
     trainer = Trainer(train_cfg(root, "enable_amp=true", "cache_device=true",
                                 f"steps_per_call={K if K > 1 else 0}"), dev, verbose=False)
-    if K == 1:
+    if default_adam:
+        it = trainer.device_iter()
+        run = lambda iters: [trainer.train_step(trainer.state, next(it),  # noqa: E731
+                                                trainer.draws(i)) for i in iters]
+    elif K == 1:
         it = trainer.device_iter()
         run = lambda iters: [trainer.step(i, next(it)) for i in iters]  # noqa: E731
     else:
@@ -2245,7 +2282,8 @@ def time_chunk_size(dev, root: str, K: int, eager_ops) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     p = device_profile(prof, CHUNK_PROFILED, wall_ms)
-    row = {"K": K, "iterations": CHUNK_TIMED, "ms_per_step": ms,
+    row = {"K": K, "adam": "default" if default_adam else "capturable",
+           "iterations": CHUNK_TIMED, "ms_per_step": ms,
            "host_clock_ms_per_step": host_ms, "scans_per_sec": TRAIN_BATCH / ms * 1e3,
            "peak_memory_gb": peak_gb, **p,
            "device_idle_share_of_unprofiled_step": 1.0 - p["device_busy_ms_per_step"] / ms}
@@ -2273,11 +2311,15 @@ def time_chunks(dev, root: str) -> list:
     device cache after a warm-up (the capture for K > 1); capture seconds,
     peak memory, the host's launches a step outside the graphs, and device
     busy time and idle share from torch.profiler where the trace shows the
-    graphs' kernels."""
+    graphs' kernels.  K = 1 with Adam's default update and with the
+    capturable one the trainer steps on CUDA, in the order default,
+    capturable, capturable, default (the eager step's time moves with the
+    host)."""
     rows = []
-    for K in CHUNK_KS:
+    for K, default_adam in ([(1, True), (1, False), (1, False), (1, True)]
+                            + [(K, False) for K in CHUNK_KS if K > 1]):
         rows.append(time_chunk_size(dev, root, K, rows[0]["device_ops_per_step"]
-                                    if rows else None))
+                                    if rows else None, default_adam))
         gc.collect()  # a trainer and its chunk runner refer to each other
         torch.cuda.empty_cache()
     return rows
@@ -2874,8 +2916,8 @@ def rank_rounds(trainer, world: int = 2):
             (draws,) = trainer.draws(i)
         finally:
             trainer.num_accumulation = world
-        rounds = [local_draws([draws], r, world)[0] for r in range(world)]
-        return trainer.train_step(trainer.state, trainer.to_device(batch), rounds)
+        return trainer.step(i, batch, draws=[local_draws([draws], r, world)[0]
+                                             for r in range(world)])
     return step
 
 
@@ -3030,6 +3072,182 @@ def distributed_path(work: str, run: dict, dev, validation_s: float) -> dict:
             "reconstruction": report["rec"]["launches_by_rank"]}
 
 
+# ---------------------------------------------------------------------------
+# export and serving: cli/export's torch.export artifact and cli/serve
+# ---------------------------------------------------------------------------
+
+# (dtype flag, fixed batch or 0 for a dynamic one) of each export
+EXPORTS = (("bf16", 0), ("f32", 0), ("bf16", 64))
+EXPORT_BATCHES = (1, 8, 64)  # held against the eager generator
+EXPORT_TIMED = (1, 64)  # batches timed: artifact and eager by CUDA events, requests
+EXPORT_TIMED_CALLS, SERVE_REQUESTS = 50, 50
+
+
+def export_latents(b: int, in_ch: int, dev) -> torch.Tensor:
+    return torch.from_numpy(np.random.RandomState(100 + b).randn(b, in_ch)
+                            .astype(np.float32)).to(dev)
+
+
+def hold_artifact(got: dict, want: dict) -> dict:
+    """The reloaded artifact against the eager serving generator, both
+    under cuDNN's deterministic algorithms: every output bit for bit (the
+    export CLI's looser holds are for its own self-test)."""
+    if set(got) != set(want) or not all(torch.equal(got[k], want[k]) for k in want):
+        diffs = {k: float((got[k].float() - want[k].float()).abs().max())
+                 for k in want if k in got and got[k].shape == want[k].shape}
+        raise AssertionError(f"artifact against the eager generator: outputs {sorted(got)}, "
+                             f"largest differences {diffs}")
+    return {"bit_equal": True}
+
+
+def post(url: str, body: dict, query: str = ""):
+    """(status, body bytes) of a POST /generate."""
+    req = urllib.request.Request(url + "/generate" + query, data=json.dumps(body).encode(),
+                                 method="POST", headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def response_arrays(status: int, body: bytes, json_format: bool) -> dict:
+    if status != 200:
+        raise AssertionError(f"/generate answered {status}: {body[:300]!r}")
+    if json_format:
+        return {k: np.asarray(v, np.float32) for k, v in json.loads(body).items()}
+    with np.load(io.BytesIO(body)) as z:
+        return {k: z[k] for k in z.files}
+
+
+def serve_checks(export_dir: str, in_ch: int) -> dict:
+    """``cli/serve``'s server on ``export_dir`` in a thread: /healthz, then
+    /generate at EXPORT_BATCHES, npz and JSON, seeded and client latents,
+    each response equal to the service's own call on the same z (each
+    under cuDNN's deterministic algorithms, as served); request latency
+    over SERVE_REQUESTS requests at EXPORT_TIMED."""
+    server, service = serve.make_server(export_dir, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    out = {"fixed_batch": service.fixed_batch}
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        if not health["ok"] or health["manifest"] != service.manifest:
+            raise AssertionError(f"/healthz: {health}")
+        checked = 0
+        for b in EXPORT_BATCHES:
+            client = np.random.RandomState(200 + b).randn(b, in_ch).astype(np.float32)
+            for body in ({"batch": b, "seed": b}, {"latents": client.tolist()}):
+                z = service.latents(body)
+                want = service.generate(z)
+                for json_format in (False, True):
+                    got = response_arrays(*post(url, body, "?format=json" if json_format
+                                                else ""), json_format)
+                    if set(got) != set(want) or not all(
+                            np.array_equal(got[k], want[k]) for k in want):
+                        raise AssertionError(f"/generate at batch {b} ({body.keys()}, "
+                                             f"json {json_format}) differs from the "
+                                             "service's call")
+                    checked += 1
+        status, _ = post(url, {"latents": [[0.0] * (in_ch + 1)]})
+        if status != 400:
+            raise AssertionError(f"a malformed request answered {status}")
+        out["responses_checked"] = checked
+        for b in EXPORT_TIMED:
+            post(url, {"batch": b, "seed": 0})  # warm-up
+            lat = []
+            for r in range(SERVE_REQUESTS):
+                t = time.perf_counter()
+                response_arrays(*post(url, {"batch": b, "seed": r}), False)
+                lat.append((time.perf_counter() - t) * 1e3)
+            out[f"request_ms_batch_{b}"] = {"p50": float(np.percentile(lat, 50)),
+                                            "p90": float(np.percentile(lat, 90)),
+                                            "requests": SERVE_REQUESTS}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    return out
+
+
+def export_path(work: str, run: dict, dev) -> dict:
+    """Phase 7: ``cli/export`` on the card for ``prepare``'s full-width
+    DUSty-II .pth, at bf16 and float32 with a dynamic batch and at bf16
+    with a fixed batch of 64, each with its own reload self-test; the
+    reloaded artifact held against the eager serving generator at
+    EXPORT_BATCHES (the fixed one at 64); export, load and first-call
+    seconds, ``artifact_bytes``, the artifact's ms a call at EXPORT_TIMED
+    under cuDNN's default and deterministic algorithms (the latter as
+    served) and the eager generator's; then ``serve_checks`` on the dynamic bf16
+    artifact, and on the fixed one (its padding, and a request above its
+    batch refused)."""
+    cfg, G, lidar, noise = setup(run["pth"], run["cfg_path"], dev)
+    in_ch = int(cfg.model.gen.in_ch)
+    rows = []
+    for dtype_flag, fixed in EXPORTS:
+        d = os.path.join(work, f"export_{dtype_flag}_{fixed or 'dynamic'}")
+        t = time.perf_counter()
+        export_cli.main(["--model-path", run["pth"], "--config-path", run["cfg_path"],
+                         "--output-dir", d, "--dtype", dtype_flag, "--batch-size", str(fixed)])
+        row = {"dtype": dtype_flag, "batch": fixed or "dynamic",
+               "export_and_self_test_s": time.perf_counter() - t}
+        t = time.perf_counter()
+        call, manifest = load_exported(d)
+        row.update({"load_s": time.perf_counter() - t,
+                    "artifact_bytes": manifest["artifact_bytes"], "device": manifest["device"]})
+        eager = ServingGenerator(G, noise, lidar, compute_dtype=resolve_dtype(dtype_flag))
+        batches = (fixed,) if fixed else EXPORT_BATCHES
+        with torch.inference_mode():
+            z = export_latents(batches[0], in_ch, dev)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            call(z)
+            torch.cuda.synchronize()
+            row["first_call_s"] = time.perf_counter() - t
+            with deterministic_convolutions():
+                row["holds"] = {b: hold_artifact(call(export_latents(b, in_ch, dev)),
+                                                 eager(export_latents(b, in_ch, dev)))
+                                for b in batches}
+            for b in EXPORT_TIMED:
+                if fixed and b != fixed:
+                    continue
+                z = export_latents(b, in_ch, dev)
+                row[f"artifact_ms_batch_{b}"] = cuda_ms(lambda: call(z), EXPORT_TIMED_CALLS)
+                with deterministic_convolutions():  # as the server calls it
+                    row[f"artifact_deterministic_ms_batch_{b}"] = cuda_ms(
+                        lambda: call(z), EXPORT_TIMED_CALLS)
+                row[f"eager_ms_batch_{b}"] = cuda_ms(lambda: eager(z), EXPORT_TIMED_CALLS)
+        if fixed:
+            try:
+                with torch.inference_mode():
+                    call(export_latents(fixed - 1, in_ch, dev))
+            except AssertionError as e:  # the program's input guard
+                row["refused_batch"] = {"batch": fixed - 1, "error": str(e)[:80]}
+            else:
+                raise AssertionError(f"the batch-{fixed} artifact ran a batch of {fixed - 1}")
+        print("export:", json.dumps(row))
+        rows.append(row)
+        del call
+    serving = serve_checks(os.path.join(work, "export_bf16_dynamic"), in_ch)
+    service = serve.GeneratorService(os.path.join(work, "export_bf16_64"))
+    z = np.random.RandomState(7).randn(8, in_ch).astype(np.float32)
+    got = service.generate(z)
+    with deterministic_convolutions(), torch.inference_mode():
+        want = service.call(torch.from_numpy(np.pad(z, [(0, 56), (0, 0)], mode="edge"))
+                            .to(dev))
+    if not all(np.array_equal(got[k], want[k][:8].cpu().numpy()) for k in want):
+        raise AssertionError("the fixed-batch service's padded batch of 8 differs")
+    try:
+        service.generate(np.zeros((65, in_ch), np.float32))
+        raise AssertionError("the batch-64 service took a batch of 65")
+    except ValueError:
+        pass
+    print("serving:", json.dumps(serving))
+    return {"exports": rows, "serving": serving}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--num-test", type=int, default=NUM_TEST,
@@ -3108,6 +3326,7 @@ def main(argv=None) -> int:
         chunk_training = chunk_cli_path(work, run)
         image_logging_path(work, run, dev)
         distributed = distributed_path(work, run, dev, training["validation_s"])
+        export_path(work, run, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for i, (x, y) in enumerate(rec_clouds):

@@ -14,6 +14,8 @@ tensors and launches the kernel, or raises, for CUDA tensors.
 
 from __future__ import annotations
 
+import contextlib
+
 __version__ = "0.1.0"
 
 # torch is imported inside the functions: the preprocessing pool's spawned
@@ -45,6 +47,22 @@ def synchronize(device) -> None:
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def deterministic_convolutions():
+    """cuDNN's deterministic algorithms inside, its setting restored after.
+    cuDNN's default float32 engines for some convolutions (the ConvTs'
+    forward and weight gradients) sum with atomics, so two calls on the
+    same inputs can part in the last bits; under the pin they repeat."""
+    import torch
+
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
 
 
 def set_metric_precision() -> None:

@@ -8,13 +8,16 @@ reference's order), the image-step counter; plus the run's ``seed``, from
 which every draw of an iteration derives, so a resume replays the
 uninterrupted run.  The JAX package imports the file
 (``train_state_from_torch``) and writes it
-(``save_reference_checkpoint``); the port resumes from either.  Writes go
-to a temporary file renamed into place.
+(``save_reference_checkpoint``); the port resumes from either, and from
+the JAX package's native ``.ckpt`` (``utils/jax_checkpoint.py``).  With
+``utils/weights.py`` this module is the port's counterpart of the JAX
+package's ``utils/torch_import.py`` and of ``utils/torch_export.py``'s
+writing half.  Writes go to a temporary file renamed into place.
 
-A run trained in CUDA-graph chunks keeps Adam in its capturable mode
-(``train/state.py::make_capturable``); its file is written as a per-step
+A run on CUDA keeps Adam in its capturable mode
+(``train/state.py::make_capturable``); its file is written as a CPU
 run's (``capturable`` off, the step counts on the CPU), so that either
-mode, and the JAX package, resumes from it.  Loading is in place, before
+device, and the JAX package, resumes from it.  Loading is in place, before
 any capture.
 """
 
@@ -27,6 +30,7 @@ from typing import Optional
 import torch
 
 from dusty_gan_torch.train.state import TrainState
+from dusty_gan_torch.utils.jax_checkpoint import load_checkpoint_dict
 
 
 def checkpoint_name(images_seen: int) -> str:
@@ -68,11 +72,12 @@ def save_checkpoint(path: str, state: TrainState, seed: int) -> str:
     return path
 
 
-def restore_checkpoint(path: str, state: TrainState) -> Optional[int]:
-    """Load a reference-format ``.pth`` into ``state`` (strictly); returns
-    the run seed it carries, None for a file without one (the JAX
+def restore_checkpoint(path: str, state: TrainState, cfg) -> Optional[int]:
+    """Load a reference-format ``.pth`` or a JAX ``.ckpt`` (mapped by ``cfg``'s
+    model and solver) into ``state`` (strictly); returns the run seed it
+    carries, None for a file without one (a JAX ``.ckpt`` or the JAX
     package's export, a reference run)."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    ckpt = load_checkpoint_dict(path, cfg)
     state.G.load_state_dict(ckpt["G"], strict=True)
     state.D.load_state_dict(ckpt["D"], strict=True)
     state.G_ema.load_state_dict(ckpt["G_ema"], strict=True)

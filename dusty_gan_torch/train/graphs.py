@@ -23,7 +23,9 @@ those.
 On CUDA each distinct chunk length is one ``torch.cuda.CUDAGraph`` (at
 most three in a run: the first chunk, which realigns a resume to the
 K-grid, K, and the tail), captured at its first use with Adam in its
-capturable mode.  Before the first capture two steps run on a deep copy
+capturable mode, in which the per-step path on CUDA steps it too
+(``Trainer.next_lrs``), so that a replay repeats the per-step path's
+arithmetic.  Before the first capture two steps run on a deep copy
 of the state on a side stream, which settles cuDNN's algorithm choices,
 workspaces and lazy handles without advancing the run.  A capture or a
 replay that fails raises: nothing falls back to the eager loop.  The
@@ -43,7 +45,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from dusty_gan_torch.train.state import make_capturable, updates_done
+from dusty_gan_torch.train.state import set_lr
 
 WARMUP_STEPS = 2  # eager steps on a copy of the state before the first capture
 
@@ -71,10 +73,8 @@ def _leaves(obj) -> List[torch.Tensor]:
 
 class ChunkRunner:
     """Chunks of up to ``max_len`` iterations on ``trainer``'s state (a
-    ``Trainer`` with a device cache).  The optimizers' update count is
-    read at the first chunk and counted on the host from there on (on
-    CUDA it moves to the card then), so per-step updates belong before
-    the first chunk."""
+    ``Trainer`` with a device cache), at the learning rates of
+    ``trainer.next_lrs``."""
 
     def __init__(self, trainer, max_len: int):
         self.trainer = trainer
@@ -87,7 +87,6 @@ class ChunkRunner:
         template = trainer.draws(1)
         self.slots = [_map(torch.empty_like, template) for _ in range(max_len)]
         self.lrs = torch.zeros((max_len, 2), dtype=torch.float32, device=self.device)
-        self.updates: Optional[Tuple[int, int]] = None  # (D, G) updates made
         self.graphs: Dict[int, Tuple[torch.cuda.CUDAGraph, torch.Tensor, Tuple[str, ...]]] = {}
         self.capture_s: Dict[int, float] = {}  # seconds to capture each length
         self.replays = self.replayed_iterations = 0
@@ -119,14 +118,7 @@ class ChunkRunner:
             pairs = [(a, b) for a, b in zip(dst, src) if a.dtype == dtype]
             torch._foreach_copy_([a for a, _ in pairs], [b for _, b in pairs])
         st = self.state
-        if self.updates is None:
-            self.updates = (updates_done(st.opt_D), updates_done(st.opt_G))
-            if self.graphed:
-                make_capturable(st.opt_D)
-                make_capturable(st.opt_G)
-        n_d, n_g = self.updates
-        lrs = [(st.schedule_D.at(n_d + j), st.schedule_G.at(n_g + j)) for j in range(k)]
-        self.updates = (n_d + k, n_g + k)
+        lrs = self.trainer.next_lrs(k)
         if not self.graphed:
             for j in range(k):
                 scalars = self._step(st, j, lrs[j])
@@ -140,8 +132,7 @@ class ChunkRunner:
         self.replayed_iterations += k
         st.step += k * self.trainer.batch_size
         for opt, lr in zip((st.opt_D, st.opt_G), lrs[-1]):
-            for group in opt.param_groups:  # what a checkpoint records
-                group["lr"] = lr
+            set_lr(opt, lr)  # what a checkpoint records
         return dict(zip(keys, out.clone().unbind()))
 
     def _warm_up(self) -> None:

@@ -9,12 +9,14 @@ others, optax's staircase ``exponential_decay`` in the JAX package.  It is
 computed from the optimizer's own update count before each update, so a
 resumed run (whose Adam state carries the count) continues the schedule.
 
-CUDA-graph chunks (``train/graphs.py``) cannot read that count: it lives
-on the card there (``make_capturable``: Adam's ``capturable`` mode, whose
+On CUDA, Adam steps in its capturable mode (``make_capturable``: its
 update reads its step counter and a tensor learning rate in device
-memory), and a host read would synchronise inside the capture.  They
-pass each update's learning rate instead (``scheduled_step(..., lr=)``),
-computed by the same schedule from the count the host tracks.
+memory), on the per-step path and in CUDA-graph chunks
+(``train/graphs.py``) alike, so that the two share one arithmetic.  A
+host read of that count would synchronise (and inside a capture, fail),
+so both pass each update's learning rate instead (``scheduled_step(...,
+lr=)``), computed by the same schedule from the count the host tracks
+(``Trainer.next_lrs``).
 """
 
 from __future__ import annotations
@@ -54,11 +56,13 @@ def scheduled_step(optimizer: torch.optim.Optimizer, schedule: LRSchedule,
                    lr=None) -> None:
     """One update at the schedule's rate, or at ``lr`` (a float, or a 0-d
     device tensor that a captured update reads at replay)."""
-    if lr is None:
-        lr = schedule.at(updates_done(optimizer))
+    set_lr(optimizer, schedule.at(updates_done(optimizer)) if lr is None else lr)
+    optimizer.step()
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr) -> None:
     for group in optimizer.param_groups:
         group["lr"] = lr
-    optimizer.step()
 
 
 def make_capturable(optimizer: torch.optim.Adam) -> None:

@@ -43,6 +43,12 @@ rows of the iteration's global draws; the step averages the gradients.
 Validation, image logging and checkpoints are the caller's to run on rank
 0 alone; ``validation`` issues no collective.
 
+Adam (``next_lrs``): on CUDA both optimizers step in Adam's capturable
+mode from the first update on, per step and in chunks alike, with each
+update's learning rate a float32 tensor on the card, from the schedule at
+the update count the host tracks; so a chunk's graph replays the
+per-step path's arithmetic.  On the CPU Adam keeps its default update.
+
 Chunks (``steps_per_call=K``, K > 1, which needs ``cache_device=true``):
 ``step_chunk`` runs k consecutive iterations on their device-cache rows
 (``train/graphs.py``): on CUDA through one captured CUDA graph per chunk
@@ -55,6 +61,7 @@ from __future__ import annotations
 
 import collections
 import os.path as osp
+import warnings
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -76,7 +83,8 @@ from dusty_gan_torch.parallel import mesh
 from dusty_gan_torch.train.checkpoint import (checkpoint_name, restore_checkpoint,
                                               save_checkpoint)
 from dusty_gan_torch.train.graphs import ChunkRunner
-from dusty_gan_torch.train.state import create_train_state
+from dusty_gan_torch.train.state import (create_train_state, make_capturable, set_lr,
+                                         updates_done)
 from dusty_gan_torch.train.step import (PL_BATCH_SHRINK, TrainStep, fetch_reals,
                                         local_draws, sample_draws)
 from dusty_gan_torch.utils.postprocess import postprocess
@@ -188,8 +196,9 @@ class Trainer:
             batch_size=self.batch_size, policy=self.policy)
 
         self.start_iteration = 0
+        self.updates: Optional[Tuple[int, int]] = None  # (D, G) updates, counted on the host
         if cfg.get("resume"):
-            seed = restore_checkpoint(str(cfg.resume), self.state)
+            seed = restore_checkpoint(str(cfg.resume), self.state, cfg)
             if seed is not None:  # the run's own seed rules its draws and its loader
                 self.seed = self.loader.seed = seed
             self.start_iteration = self.state.step // self.batch_size
@@ -263,12 +272,41 @@ class Trainer:
             relativistic=self.train_step.relativistic, use_pl=self.train_step.use_pl)
         return local_draws(draws, self.rank, self.world) if self.world > 1 else draws
 
-    def step(self, i: int, batch, stop: bool = False) -> Dict[str, torch.Tensor]:
+    def next_lrs(self, k: int = 1) -> list:
+        """The (D, G) learning rates of the next ``k`` updates by the
+        schedules, which the caller makes.  The update count is read from
+        Adam's state while it lives on the host; on CUDA the first call
+        moves it to the card (``make_capturable``), and from there on the
+        host counts."""
+        st = self.state
+        if self.updates is None or self.device.type != "cuda":
+            self.updates = (updates_done(st.opt_D), updates_done(st.opt_G))
+            if self.device.type == "cuda":
+                make_capturable(st.opt_D)
+                make_capturable(st.opt_G)
+        n_d, n_g = self.updates
+        self.updates = (n_d + k, n_g + k)
+        return [(st.schedule_D.at(n_d + j), st.schedule_G.at(n_g + j)) for j in range(k)]
+
+    def step(self, i: int, batch, stop: bool = False, draws=None) -> Dict[str, torch.Tensor]:
         """Iteration ``i`` (1-based) on a host or device batch (this rank's
-        rows); ``stop`` is this rank's stop flag, voted on in a group."""
+        rows), with ``draws`` (default ``draws(i)``); ``stop`` is this
+        rank's stop flag, voted on in a group."""
         if isinstance(batch["depth"], np.ndarray):
             batch = self.to_device(batch)
-        return self.train_step(self.state, batch, self.draws(i), stop=stop)
+        draws = self.draws(i) if draws is None else draws
+        if self.device.type != "cuda":
+            return self.train_step(self.state, batch, draws, stop=stop)
+        lrs = self.next_lrs()[0]
+        # fills, not copies from the host: the host does not wait for the step
+        lr = tuple(torch.full((), v, dtype=torch.float32, device=self.device) for v in lrs)
+        with warnings.catch_warnings():
+            # Adam's capturable update warns that it steps outside a capture
+            warnings.filterwarnings("ignore", message=".*capturable=True")
+            scalars = self.train_step(self.state, batch, draws, lr, stop=stop)
+        for opt, v in zip((self.state.opt_D, self.state.opt_G), lrs):
+            set_lr(opt, v)  # what a checkpoint records
+        return scalars
 
     def step_chunk(self, iters, rows: np.ndarray, draws=None) -> Dict[str, torch.Tensor]:
         """Consecutive iterations ``iters`` (1-based) in one call: ``rows``

@@ -1,9 +1,9 @@
 """Checkpoint + config -> (cfg, G, lidar, fixed noise) for evaluation
 (``dusty_gan_tpu/utils/setup.py``).
 
-Weights come from a reference-format ``.pth`` (its ``G_ema``); a native
-JAX ``.ckpt`` is converted first with ``python -m
-dusty_gan_tpu.cli.export_pth``.  The fixed Gumbel noise, one frozen
+Weights come from a reference-format ``.pth`` (its ``G_ema``) or from the
+JAX package's native ``.ckpt`` (its ``params_G_ema``, read without JAX by
+``utils/jax_checkpoint.py``).  The fixed Gumbel noise, one frozen
 logistic field per Gumbel module shared by every evaluated sample, is
 drawn on the CPU from a seeded generator so every device sees the same
 field.
@@ -21,7 +21,8 @@ from dusty_gan_torch.geometry.lidar import Lidar
 from dusty_gan_torch.models.dusty import DUSty1, DUSty2
 from dusty_gan_torch.models.factory import define_G
 from dusty_gan_torch.ops.gumbel import logistic_noise
-from dusty_gan_torch.utils.weights import load_reference_checkpoint
+from dusty_gan_torch.utils.jax_checkpoint import read_jax_checkpoint
+from dusty_gan_torch.utils.weights import generator_state_dict, load_reference_checkpoint
 
 FIXED_NOISE_SEED = 0x501
 
@@ -51,20 +52,25 @@ def setup(model_path: str, config_path: str,
         raise FileNotFoundError(f"model checkpoint not found: {model_path}")
     if not osp.exists(config_path):
         raise FileNotFoundError(f"config not found: {config_path}")
-    if not model_path.endswith(".pth"):
+    if not model_path.endswith((".pth", ".ckpt")):
         raise ValueError(
-            f"{model_path}: dusty_gan_torch loads reference-format .pth "
-            "checkpoints; convert a native .ckpt with "
-            "`python -m dusty_gan_tpu.cli.export_pth`")
+            f"{model_path}: dusty_gan_torch loads a reference-format .pth or the "
+            "JAX package's native .ckpt")
     cfg = load_config(config_path)
     cfg.model.gen.shape = list(cfg.dataset.shape)
     cfg.model.dis.shape = list(cfg.dataset.shape)
 
     G = define_G(cfg)
-    sd, step = load_reference_checkpoint(model_path, "G_ema")
+    if model_path.endswith(".ckpt"):
+        state = read_jax_checkpoint(model_path)["state"]
+        sd = generator_state_dict(state["params_G_ema"], str(cfg.model.gen.arch),
+                                  float(cfg.model.gen.drop_const))
+        step, kind = int(state["step"]), "JAX .ckpt"
+    else:
+        (sd, step), kind = load_reference_checkpoint(model_path, "G_ema"), "reference .pth"
     G.load_state_dict(sd, strict=True)
     G = G.to(device).eval().requires_grad_(False)
-    print(f"#images: {step} (reference .pth)")
+    print(f"#images: {step} ({kind})")
 
     angle_file = None
     for cand in ("angles.npy", "angles.pt"):

@@ -2,8 +2,10 @@
 
 The port's modules use the reference ``.pth`` state-dict keys, so weights
 arrive either as a reference-format ``.pth`` (``{"G", "G_ema", "step",
-...}``; ``python -m dusty_gan_tpu.cli.export_pth`` writes one from a native
-JAX ``.ckpt``) or as a JAX parameter tree (a nested dict of arrays), which
+...}``, as the port's trainer, the reference trainer and the JAX package's
+``export_pth`` write it) or as a JAX parameter tree (a nested dict of
+arrays: a native JAX ``.ckpt`` read by ``utils/jax_checkpoint.py``, which
+``python -m dusty_gan_torch.cli.export_pth`` turns into a ``.pth``), which
 ``generator_state_dict`` maps to the same keys and layouts:
 
   proj/kernel (h0,w0,I,O)                    -> 0.0.module.weight (I,O,h0,w0)
@@ -22,7 +24,9 @@ buffer and, with a learnable temperature, ``gumbel*.weight``.
 
 plus the BlurVH filter buffers.  ``adam_state_dict`` turns Adam moments
 (optax's mu, nu and count, mapped to state dicts by the same functions)
-into a ``torch.optim.Adam`` state dict.
+into a ``torch.optim.Adam`` state dict.  With ``train/checkpoint.py`` this
+module is the port's counterpart of the JAX package's
+``utils/torch_import.py`` and of ``utils/torch_export.py``'s writing half.
 """
 
 from __future__ import annotations
@@ -101,15 +105,15 @@ def discriminator_state_dict(params: Dict) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def adam_state_dict(module: torch.nn.Module, mu_sd: Dict, nu_sd: Dict, count: int,
+def adam_state_dict(names, mu_sd: Dict, nu_sd: Dict, count: int,
                     lr: float, betas: Tuple[float, float], eps: float = 1e-8) -> Dict:
-    """A ``torch.optim.Adam`` state dict for ``make_optimizer(module)``:
-    ``mu_sd`` / ``nu_sd`` hold the first and second moments keyed like
-    ``module.state_dict()`` (a moment tree mapped by the same function as
-    the weights), ``count`` the updates made.  Parameter indices follow
-    ``module.named_parameters()``."""
-    names = [n for n, _ in module.named_parameters()]
-    state = {i: {"step": torch.tensor(float(count)),
+    """A ``torch.optim.Adam`` state dict over the parameters ``names`` (in
+    ``named_parameters()`` order, which the indices follow), as the JAX
+    package's ``torch_export.adam_state_dict`` writes it: ``mu_sd`` / ``nu_sd``
+    hold the first and second moments keyed like the module's state dict (a
+    moment tree mapped by the same function as the weights), ``count`` the
+    updates made, stored as each parameter's int ``step``."""
+    state = {i: {"step": int(count),
                  "exp_avg": torch.as_tensor(mu_sd[n], dtype=torch.float32).clone(),
                  "exp_avg_sq": torch.as_tensor(nu_sd[n], dtype=torch.float32).clone()}
              for i, n in enumerate(names)}

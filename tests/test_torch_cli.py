@@ -2,8 +2,8 @@
 tree: the JSON key set equals the JAX CLI's on the same reference-format
 .pth, with --metrics cd,emd and with --calibrate-drop-rate too, the scores
 do not depend on the batch size, the CLI refuses to run without a GPU
-unless --device cpu is given, unknown metrics raise, and no module of the port (nor chip_smoke.py) imports JAX
-or the JAX package."""
+unless --device cpu is given, unknown metrics raise, and no module of the port (nor chip_smoke.py) imports JAX,
+msgpack or the JAX package, even while it reads a JAX .ckpt."""
 
 import glob
 import json
@@ -14,11 +14,14 @@ import sys
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
 from dusty_gan_tpu.cli.evaluate_synthesis import main as jax_main
 from dusty_gan_tpu.models.factory import define_G as jax_define_G
+from dusty_gan_tpu.train.checkpoint import save_checkpoint as jax_save_checkpoint
+from dusty_gan_tpu.train.state import TrainState as JaxTrainState
 from dusty_gan_tpu.utils import torch_export as te
 
 from dusty_gan_torch.cli.evaluate_synthesis import main, latents
@@ -168,20 +171,32 @@ def test_unknown_metric_raises(run, metrics):
         main(_args(run, "--device", "cpu", "--metrics", metrics))
 
 
-def test_port_never_imports_jax():
-    """Import every module of the port and chip_smoke.py, and build and load
-    the native data library, in a fresh interpreter: neither JAX nor the JAX
-    package may be loaded."""
+def test_port_never_imports_jax(tmp_path):
+    """Import every module of the port and chip_smoke.py, build and load the
+    native data library, and read a JAX ``.ckpt`` (written here by the JAX
+    package), in a fresh interpreter whose ``msgpack`` import fails: neither
+    JAX, flax, optax, msgpack nor the JAX package may be loaded."""
+    opt = optax.adam(1e-3)
+    params = {"params": {"w": np.ones((2, 3), np.float32)}}
+    state = JaxTrainState(step=jnp.asarray(3, jnp.int32), params_G=params, params_D=params,
+                          params_G_ema=params, opt_G=opt.init(params), opt_D=opt.init(params),
+                          pl_ema=jnp.asarray(0.5, jnp.float32))
+    ckpt = jax_save_checkpoint(str(tmp_path / "checkpoint_0000000003.ckpt"), state)
     code = (
         "import importlib, pkgutil, sys\n"
+        "sys.modules['msgpack'] = None\n"
         "import dusty_gan_torch\n"
         "for m in pkgutil.walk_packages(dusty_gan_torch.__path__, 'dusty_gan_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "from dusty_gan_torch.data import native\n"
         "native.load()\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'optax', 'dusty_gan_tpu'))\n"
+        "from dusty_gan_torch.utils.jax_checkpoint import adam_entry, read_jax_checkpoint\n"
+        f"st = read_jax_checkpoint({ckpt!r})['state']\n"
+        "assert int(st['step']) == 3 and adam_entry(st['opt_G'], 'opt_G')[0] == 0\n"
+        "assert st['params_G']['params']['w'].shape == (2, 3)\n"
+        "bad = sorted(k for k, v in sys.modules.items() if v is not None and k.split('.')[0]\n"
+        "             in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'dusty_gan_tpu'))\n"
         "print(len([k for k in sys.modules if k.startswith('dusty_gan_torch')]), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

@@ -168,8 +168,11 @@ def test_capturable_state_is_saved_in_the_per_step_form(root, tmp_path):
 
 
 def test_summarize_trace_reads_a_cpu_trace(tmp_path):
-    prof = profiling.start_trace(torch.device("cpu"))
+    # the input is made outside the trace: the two traced steps hold only
+    # ops that each step runs (an op made once, such as a slow first
+    # randn, could top the list with 1 // 2 = 0 calls a step)
     x = torch.randn(32, 32, requires_grad=True)
+    prof = profiling.start_trace(torch.device("cpu"))
     for _ in range(2):
         (x @ x).relu().sum().backward()
     path = profiling.stop_trace(prof, str(tmp_path), "steps")

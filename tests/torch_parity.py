@@ -437,7 +437,8 @@ def jax_step_case(name, jit=False):
                 (state.opt_G, state.G, jstate.opt_G, lambda t: generator_state_dict(t, arch)),
                 (state.opt_D, state.D, jstate.opt_D, discriminator_state_dict)):
             adam = adam_of(jopt)
-            opt.load_state_dict(adam_state_dict(module, to_sd(adam.mu), to_sd(adam.nu), count,
+            opt.load_state_dict(adam_state_dict([n for n, _ in module.named_parameters()],
+                                                to_sd(adam.mu), to_sd(adam.nu), count,
                                                 LR, (beta1, BETA2)))
     step = TrainStep(Lidar.from_angle_array(step_angles(), (SH, SW), 0.9, 120.0), gan_mode=mode,
                      loss_weight=lw, num_accumulation=A, ema_decay=ema_decay,
