@@ -108,12 +108,25 @@
    all-reduce held against the same step without it (the eager envelope
    of phase 6a), the ms a step with and without it by CUDA events, the
    all-reduce alone, then ``cli.train multihost=1`` for a few iterations
-   with a checkpoint and one validation on K1; (b) with two or more cards,
-   two full-width steps on two ranks (``cuda:0``, ``cuda:1``) in float32
-   against one process on the whole batches, and in bf16 against one
-   process stepping the ranks' rows as two accumulation rounds, the
-   ranks' states bit-equal, else the
-   line ``{"distributed": {"two_gpu_training": "skipped: 1 device"}}``;
+   with a checkpoint and one validation on K1; (a') in the same group,
+   chunks of 4 (their graphs capturing the NCCL all-reduces, the lengths
+   captured up front) against the per-step path, bit for bit under
+   cuDNN's deterministic algorithms in float32 and bf16 after iterations
+   1 and 8 and on the scalars, a chunk with the stop buffer set voting
+   above 0, two ``ragan`` steps in the group bit-equal to the same steps
+   without the group's collectives, the ms a chunked step with and
+   without them (CUDA events, in turns), and ``cli.train multihost=1
+   cache_device=true steps_per_call=4`` for 24 iterations with one
+   validation on K1 (its blocks held against the plain version); (b)
+   with two or more cards, two full-width steps on two ranks (``cuda:0``,
+   ``cuda:1``) in float32 against one process on the whole batches, in
+   bf16 against one process stepping the ranks' rows as two
+   accumulation rounds, and two float32 ``ragan`` steps against one
+   process on the whole batches, the ranks' states bit-equal; (b')
+   chunks against the per-step path on the two ranks, bit for bit under
+   the pin; else the line ``{"distributed": {"two_gpu_training":
+   "skipped: 1 device", "two_gpu_chunks_and_ragan": "skipped: 1
+   device"}}``;
    (c) ``evaluate_synthesis --multihost`` on two ranks sharing the card,
    the synthesis path's run and ``--metrics cd,emd`` on 64 scans: every
    pairwise matrix and the scores equal to the single-process run's bit
@@ -148,7 +161,8 @@
    ``tune_tolerance``; K3's from the demo, its launches, times and bound at
    the demo's (1, 16384)^2, with the reconstruction shape's under
    ``batch_512``; each kernel of the distributed phase with its launches
-   per rank under ``distributed``), the card line, and as the last line
+   per rank under ``distributed``, K1's in the chunk-mode ``cli.train
+   multihost=1`` run with its hold), the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, with no result line, when there is no GPU or any phase
@@ -2658,6 +2672,13 @@ DIST_EMD_NUM_TEST = 64
 # tens of percent)
 DIST_REC_BATCH, DIST_REC_BATCHES, DIST_REC_STEPS, DIST_REC_RTOL = 64, 2, 100, 1e-3
 DIST_CHILD_TIMEOUT = 600  # seconds a child may take
+# (a') chunks in a group: GROUP_CHUNK_ITERS iterations in chunks of GRAPH_K
+# (1, then the CLI's schedule: 3, 4) against the per-step path in the same
+# group, bit for bit under cuDNN's deterministic algorithms; the ms a
+# chunked step in the group and without it over GROUP_TIMED iterations a
+# turn; cli.train multihost=1 in chunks for GROUP_CLI_ITERS iterations,
+# stats every GROUP_CLI_STATS, one validation and a checkpoint at the end
+GROUP_CHUNK_ITERS, GROUP_TIMED, GROUP_CLI_ITERS, GROUP_CLI_STATS = 8, 32, 24, 8
 
 
 def launch_children(work: str, mode: str, spec: dict, local_ranks: list) -> list:
@@ -2711,10 +2732,137 @@ def recording_pairwise(store: list):
     return lambda: cov_mmd_1nna.PAIRWISE.update(saved)
 
 
+@deterministic_convolutions()
+def group_chunks_against_steps(dev, root: str, amp: bool) -> dict:
+    """In this process group, one trainer in chunks of GRAPH_K (its lengths
+    captured up front, as the CLI does in a group) and one per step, from
+    one seed, for GROUP_CHUNK_ITERS iterations under cuDNN's deterministic
+    algorithms: their states bit for bit after the first and the last
+    iteration and the final scalars; then one more chunk with this rank's
+    stop flag set, whose ``stop/agreed`` must read above 0."""
+    cfg = lambda *e: train_cfg(root, f"enable_amp={str(amp).lower()}",  # noqa: E731
+                               "cache_device=true", *e)
+    per_step = Trainer(cfg(), dev, verbose=False)
+    chunked = Trainer(cfg(f"steps_per_call={GRAPH_K}"), dev, verbose=False)
+    it, ix = per_step.device_iter(), chunked.loader.index_stream(0)
+    chunks = [[1]] + chunk_schedule(1, GROUP_CHUNK_ITERS, GRAPH_K)
+    chunked.chunks.prepare([len(c) for c in chunks])
+    mesh.host_barrier()
+    unequal = {}
+    for n, iters in enumerate(chunks):
+        sc_chunk = run_chunk(chunked, ix, iters)
+        for i in iters:
+            sc_step = per_step.step(i, next(it))
+        if n in (0, len(chunks) - 1):
+            torch.cuda.synchronize()
+            a, b = state_tensors(chunked), state_tensors(per_step)
+            unequal[f"iteration_{iters[-1]}"] = [k for k in b if not torch.equal(a[k], b[k])]
+    unequal["scalars"] = [k for k in sc_step if not torch.equal(sc_chunk[k], sc_step[k])]
+    iters = list(range(GROUP_CHUNK_ITERS + 1, GROUP_CHUNK_ITERS + GRAPH_K + 1))
+    rows = np.stack([chunked.device_cache.rows(*next(ix)) for _ in iters])
+    voted = float(chunked.step_chunk(iters, rows, stop=True)["stop/agreed"])
+    runner = chunked.chunks
+    out = {"policy": "bf16" if amp else "float32", "chunks": [len(c) for c in chunks],
+           "unequal_tensors": unequal, "stop_agreed_unset": float(sc_chunk["stop/agreed"]),
+           "stop_agreed_set": voted, "replays": runner.replays,
+           "captured": sorted(runner.graphs), "capture_s": runner.capture_s}
+    print(f"rank {mesh.rank()} chunks against steps in the group:", json.dumps(out))
+    if any(unequal.values()) or out["stop_agreed_unset"] != 0.0 or not voted > 0.0 or \
+            runner.replays != len(chunks) + 1:
+        raise AssertionError(f"chunks in a group of {mesh.world_size()}: {out}")
+    return out
+
+
+@deterministic_convolutions()
+def ragan_in_group(dev, root: str) -> dict:
+    """Two ``ragan`` steps at world size 1 in the group against the same
+    steps without the group's collectives, bit for bit under cuDNN's
+    deterministic algorithms."""
+    trainers = [Trainer(train_cfg(root, "solver.gan_mode=ragan", "cache_device=true"), dev,
+                        verbose=False) for _ in range(2)]
+    trainers[1].train_step.distributed = False
+    its = [t.device_iter() for t in trainers]
+    for i in (1, 2):
+        scalars = [t.step(i, next(it)) for t, it in zip(trainers, its)]
+    torch.cuda.synchronize()
+    a, b = (state_tensors(t) for t in trainers)
+    out = {"unequal_tensors": [k for k in b if not torch.equal(a[k], b[k])],
+           "unequal_scalars": [k for k in scalars[1]
+                               if not torch.equal(scalars[0][k], scalars[1][k])],
+           "scalars": {k: float(v) for k, v in scalars[0].items()}}
+    if out["unequal_tensors"] or out["unequal_scalars"]:
+        raise AssertionError(f"ragan in a group of 1 against no group: {out}")
+    return out
+
+
+def chunk_ms_in_group(dev, root: str) -> dict:
+    """ms a step of two bf16 trainers in chunks of GRAPH_K, one captured
+    with the group's collectives and one without them, by CUDA
+    events over GROUP_TIMED iterations a turn, in the order without,
+    with, with, without."""
+    trainers = {}
+    for name in ("without", "with"):
+        t = Trainer(train_cfg(root, "cache_device=true", f"steps_per_call={GRAPH_K}"), dev,
+                    verbose=False)
+        t.train_step.distributed = name == "with"
+        trainers[name] = [t, t.loader.index_stream(0), 0]
+    ms = {"without": [], "with": []}
+
+    def chunk(name: str) -> None:
+        entry = trainers[name]
+        t, ix, i = entry
+        run_chunk(t, ix, list(range(i + 1, i + GRAPH_K + 1)))
+        entry[2] = i + GRAPH_K
+
+    for name in ("without", "with", "with", "without"):
+        ms[name].append(cuda_ms(lambda: chunk(name), iters=GROUP_TIMED // GRAPH_K) / GRAPH_K)
+    return {"K": GRAPH_K, "iterations_a_turn": GROUP_TIMED, "ms_per_step": ms}
+
+
+def chunk_cli_in_group(root: str, run_dir: str) -> dict:
+    """``cli.train multihost=1 cache_device=true steps_per_call=GRAPH_K`` at
+    full width; its K1 launches (set to 0 just before, read just after)
+    and its K1 blocks held against the plain version."""
+    blocks, timings = [], {}
+
+    def recording_cd_block(rows, cols):
+        blocks.append((rows.clone(), cols.clone()))
+        return chamfer_cuda.cd_block(rows, cols)
+
+    reset_launches()
+    cov_mmd_1nna.cd_block = recording_cd_block
+    try:
+        train_cli.main(train_overrides(
+            root, run_dir, GROUP_CLI_ITERS, "multihost=1", "cache_device=true",
+            f"steps_per_call={GRAPH_K}", f"solver.checkpoint.save_stats={GROUP_CLI_STATS}",
+            f"solver.checkpoint.test={GROUP_CLI_ITERS}",
+            f"solver.checkpoint.save_model={GROUP_CLI_ITERS}"), timings=timings)
+    finally:
+        cov_mmd_1nna.cd_block = chamfer_cuda.cd_block
+    launches = launch_counts()
+    rows = logged(run_dir)
+    keys = {k for r in rows.values() for k in r}
+    saved = sorted(os.listdir(os.path.join(run_dir, "models")))
+    want = [f"checkpoint_{GROUP_CLI_ITERS * TRAIN_BATCH:010d}.pth"]
+    if saved != want or "stop/agreed" in keys or "score/mmd-cd" not in keys or \
+            not all(math.isfinite(v) for r in rows.values() for v in r.values()) or \
+            launches["cd_block"] <= 0 or not blocks:
+        raise AssertionError(f"cli.train multihost=1 in chunks: checkpoints {saved}, keys "
+                             f"{sorted(keys)}, launches {launches}")
+    return {"launches": launches, "k1": hold_blocks(blocks, "chunk-mode multihost=1"),
+            "train_s": timings["train_s"], "validation_s": timings["validation_s"],
+            "scans_per_sec": {step // TRAIN_BATCH: r["perf/scans_per_sec"]
+                              for step, r in rows.items() if "perf/scans_per_sec" in r}}
+
+
 def child_nccl(spec: dict) -> dict:
     """(a) at world size 1 over NCCL: the step with the all-reduce held
     against the same step without it, both timed; the all-reduce of one
-    step's gradients timed alone; then cli.train multihost=1."""
+    step's gradients timed alone; then cli.train multihost=1.  (a') chunks
+    against steps in the group in float32 and bf16, the stop buffer,
+    ``ragan`` in the group against no group, the chunked step's ms with
+    and without the group's collectives, and cli.train multihost=1 in
+    chunks."""
     dev = mesh.init_distributed(torch.device("cuda"))
     root = spec["root"]
     out = {"world_size": mesh.world_size(), "backend": str(torch.distributed.get_backend())}
@@ -2782,6 +2930,20 @@ def child_nccl(spec: dict) -> dict:
     out["cli"] = {"train_s": timings["train_s"], "validation_s": timings["validation_s"],
                   "scans_per_sec": {step // TRAIN_BATCH: r["perf/scans_per_sec"]
                                     for step, r in rows.items() if "perf/scans_per_sec" in r}}
+
+    # (a')
+    t0 = time.perf_counter()
+    for amp in (False, True):
+        out[f"chunks_vs_steps_{'bf16' if amp else 'float32'}"] = group_chunks_against_steps(
+            dev, root, amp)
+        gc.collect()  # the trainers and their graphs' memory pools
+        torch.cuda.empty_cache()
+    out["ragan"] = ragan_in_group(dev, root)
+    out["chunk_ms"] = chunk_ms_in_group(dev, root)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["chunk_cli"] = chunk_cli_in_group(root, spec["chunk_run_dir"])
+    out["chunks_s"] = time.perf_counter() - t0
     mesh.shutdown()
     return out
 
@@ -2852,21 +3014,30 @@ def two_steps(trainer, batches: dict, step=None) -> list:
 
 def child_two_gpu(spec: dict) -> dict:
     """(b) two steps of full-width training in float32 and in bf16 on this
-    rank's card, on its half of the global batches; writes its states
-    after each; then under bf16 the ms a step and of the gradient
-    all-reduce alone."""
+    rank's card, on its half of the global batches, and two float32
+    ``ragan`` steps; writes its states after each; then under bf16 the ms
+    a step and of the gradient all-reduce alone.  (b') chunks against
+    steps on the two ranks, float32 and bf16
+    (``group_chunks_against_steps``)."""
     dev = mesh.init_distributed(torch.device("cuda"))
     rows = mesh.local_batch_slice(TRAIN_BATCH)
     with np.load(spec["batches"]) as z:
         batches = {k: z[k][rows] for k in ("b1", "b2")}
+    chunks = {}
+    for amp in (False, True):
+        chunks["bf16" if amp else "float32"] = group_chunks_against_steps(dev, spec["root"],
+                                                                          amp)
+        gc.collect()
+        torch.cuda.empty_cache()
     states = {}
-    for amp in ("false", "true"):
-        trainer = Trainer(train_cfg(spec["root"], f"enable_amp={amp}"), dev, verbose=False)
-        states[amp] = two_steps(trainer, batches)
-        if amp == "false":
+    for name, extra in (("ragan", ("enable_amp=false", "solver.gan_mode=ragan")),
+                        ("false", ("enable_amp=false",)), ("true", ("enable_amp=true",))):
+        trainer = Trainer(train_cfg(spec["root"], *extra), dev, verbose=False)
+        states[name] = two_steps(trainer, batches)
+        if name != "true":
             del trainer
     torch.save(states, os.path.join(os.path.dirname(spec["out"]), f"two_gpu_{mesh.rank()}.pt"))
-    out = {"rank": mesh.rank(), "device": str(dev),
+    out = {"rank": mesh.rank(), "device": str(dev), "chunks_vs_steps": chunks,
            "step_ms": timed_steps(trainer, {"depth": batches["b1"]}, 3)}
     grads = [p.grad for net in (trainer.state.G, trainer.state.D) for p in net.parameters()
              if p.grad is not None]
@@ -2953,7 +3124,12 @@ def two_gpu_training(work: str, root: str, dev) -> dict:
     r on rank r's rows with their draws (``rank_rounds``), since under bf16
     a half batch may take other cuDNN algorithms than the whole batch; the
     distance to one process on the whole batches is reported beside it, as
-    is the distance between that witness and the whole-batch runs.  Then
+    is the distance between that witness and the whole-batch runs.
+    ``ragan`` (float32): two ranks, each comparing its logits with the
+    other side's mean over the global batch, against one process on the
+    whole batches.  (b') chunks of GRAPH_K on the two ranks against the
+    per-step path on the two ranks, bit for bit under cuDNN's deterministic
+    algorithms, in float32 and bf16, and the stop buffer's vote.  Then
     under bf16 the ms a step at world size 2 and in one process."""
     t0 = time.perf_counter()
     loader = Loader(define_dataset(train_cfg(root).dataset, phase="train"), TRAIN_BATCH)
@@ -2967,24 +3143,28 @@ def two_gpu_training(work: str, root: str, dev) -> dict:
     unequal = [(amp, n, k) for amp in ranks[0] for n in range(2) for k in ranks[0][amp][n]
                if not torch.equal(ranks[0][amp][n][k], ranks[1][amp][n][k])]
 
-    def runs(amp: str, rounds: int) -> list:
+    def runs(amp: str, rounds: int, *extra) -> list:
         out = []
         for _ in range(GRAPH_EAGER_RUNS):
             t = Trainer(train_cfg(root, f"enable_amp={amp}",
-                                  f"solver.num_accumulation={rounds}"), dev, verbose=False)
+                                  f"solver.num_accumulation={rounds}", *extra), dev,
+                        verbose=False)
             out.append(two_steps(t, batches, rank_rounds(t) if rounds > 1 else None))
             del t
         return out
 
     f32, whole, witness = runs("false", 1), runs("true", 1), runs("true", 2)
+    ragan = runs("false", 1, "solver.gan_mode=ragan")
     t = Trainer(train_cfg(root), dev, verbose=False)
     one_ms = timed_steps(t, {"depth": batches["b1"]}, 1)
     del t
     held = {"float32_vs_one_process": hold_state(ranks[0]["false"], f32),
-            "bf16_vs_rank_rounds": hold_state(ranks[0]["true"], witness)}
+            "bf16_vs_rank_rounds": hold_state(ranks[0]["true"], witness),
+            "ragan_float32_vs_one_process": hold_state(ranks[0]["ragan"], ragan)}
     seen = {"bf16_vs_one_process": hold_state(ranks[0]["true"], whole),
             "rank_rounds_vs_one_process": hold_state(witness[0], whole)}
     report = {"ranks_unequal_tensors": unequal,
+              "chunks_vs_steps_by_rank": [c["chunks_vs_steps"] for c in children],
               **{k: v["report"] for k, v in held.items()},
               "reported_not_held": {k: v["report"] for k, v in seen.items()}}
     report.update({
@@ -3013,14 +3193,17 @@ def distributed_path(work: str, run: dict, dev, validation_s: float) -> dict:
 
     # (a)
     t0 = time.perf_counter()
-    (nccl,) = launch_children(work, "nccl", {"root": root,
-                                             "run_dir": os.path.join(work, "dist_train")}, [0])
+    (nccl,) = launch_children(work, "nccl", {
+        "root": root, "run_dir": os.path.join(work, "dist_train"),
+        "chunk_run_dir": os.path.join(work, "dist_train_chunks")}, [0])
     nccl["phase_s"] = time.perf_counter() - t0
     print("distributed nccl world size 1:", json.dumps(nccl))
 
     # (b)
     if torch.cuda.device_count() < 2:
-        print(json.dumps({"distributed": {"two_gpu_training": "skipped: 1 device"}}))
+        print(json.dumps({"distributed": {
+            "two_gpu_training": "skipped: 1 device",
+            "two_gpu_chunks_and_ragan": "skipped: 1 device"}}))
     else:
         two_gpu_training(work, root, dev)
 
@@ -3067,6 +3250,7 @@ def distributed_path(work: str, run: dict, dev, validation_s: float) -> dict:
     print("distributed evaluation, two ranks on one card:", json.dumps(report))
     print(f"distributed phase: {time.perf_counter() - t_phase:.1f} s")
     return {"training_nccl": nccl["cli_launches"],
+            "training_nccl_chunks": nccl["chunk_cli"],
             "synthesis": report["cd"]["launches_by_rank"],
             "cd_emd": report["cd,emd"]["launches_by_rank"],
             "reconstruction": report["rec"]["launches_by_rank"]}
@@ -3362,8 +3546,11 @@ def main(argv=None) -> int:
     # (world size 1, its validation) and in the striped synthesis run, K2 in
     # the striped reconstruction run, K4 (and K1) in the striped cd,emd run
     by_rank = lambda path, name: [r[name] for r in distributed[path]]  # noqa: E731
+    chunks_k1 = distributed["training_nccl_chunks"]
     entries[0]["distributed"] = {
         "training_nccl_world_size_1": distributed["training_nccl"]["cd_block"],
+        "training_nccl_chunks_world_size_1": {"launches": chunks_k1["launches"]["cd_block"],
+                                              **chunks_k1["k1"]},
         "synthesis_launches_by_rank": by_rank("synthesis", "cd_block"),
         "cd_emd_launches_by_rank": by_rank("cd_emd", "cd_block")}
     entries[1]["distributed"] = {

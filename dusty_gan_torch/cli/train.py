@@ -25,8 +25,9 @@ SIGTERM to any rank stops every rank at the same iteration: each step's
 scalar all-reduce carries the ranks' stop flags, and every rank reads the
 vote every ``preempt_sync`` iterations (default ``max(1, min(save_stats,
 100))``), so no collective runs at a point the ranks do not share; rank 0
-checkpoints and every rank returns.  ``steps_per_call > 1`` in a process
-group raises (``ROADMAP.md``).
+checkpoints and every rank returns.  In chunk mode the vote rides each
+chunk's last step and is read at the chunk end where the chunk crossed a
+multiple of ``preempt_sync`` (so the cadence rounds up to chunk ends).
 
 Writes ``.hydra/config.yaml``, ``scalars.jsonl`` (every
 ``solver.checkpoint.save_stats`` iterations and, in the per-step loop, at
@@ -45,7 +46,12 @@ loop: k iterations a call through ``Trainer.step_chunk`` (on CUDA one
 captured CUDA graph per chunk length), the first chunk ``min(K - i % K,
 total - i)`` long so that a resume off the K-grid realigns, and the
 boundary actions at chunk ends; so K must divide ``save_stats``,
-``test``, ``save_image`` and ``save_model``.
+``test``, ``save_image`` and ``save_model``.  In a process group every
+rank captures the run's chunk lengths (the realigning first chunk, K, the
+tail) before the first chunk and then waits at one host barrier, as the
+JAX CLI compiles every length and then meets at a barrier; each rank
+passes its stop flag into each chunk and reads the previous chunk's
+``stop/agreed``.
 
 ``profile_dir=DIR`` traces iterations start+4 to start+8 of the per-step
 loop with torch.profiler (CPU and CUDA), writes the Chrome trace into DIR
@@ -79,7 +85,7 @@ from dusty_gan_torch.geometry.render import render_point_clouds
 from dusty_gan_torch.parallel import mesh
 from dusty_gan_torch.train.logging import RunLogger
 from dusty_gan_torch.train.step import fetch_reals
-from dusty_gan_torch.train.trainer import CHUNKS_IN_GROUP, Trainer
+from dusty_gan_torch.train.trainer import Trainer
 from dusty_gan_torch.utils import profiling
 from dusty_gan_torch.utils.postprocess import colorize, postprocess
 
@@ -131,6 +137,17 @@ def log_real_images(trainer: Trainer, logger: RunLogger) -> None:
     log_images(logger, "real", real, 1)
 
 
+def chunk_lengths(start: int, total: int, K: int) -> list:
+    """The distinct chunk lengths of a chunk run from iteration ``start``
+    to ``total``: the first chunk realigns to the K-grid, then chunks of
+    K, then the tail."""
+    if start >= total:
+        return []
+    first = min(K - start % K, total - start)
+    rest = total - start - first
+    return sorted({first} | ({K} if rest >= K else set()) | ({rest % K} - {0}))
+
+
 def main(argv=None, timings: Optional[Dict[str, float]] = None) -> str:
     """Returns the run directory.  ``timings``, when given, receives the
     wall seconds of the training loop (``train_s``, validation and saves
@@ -159,8 +176,6 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None) -> str:
     n = mesh.num_processes(device, requested)
     if n == 1:
         return _train(cfg, extras, device, timings)
-    if int(cfg.get("steps_per_call") or 0) > 1:
-        raise NotImplementedError(CHUNKS_IN_GROUP)
     run_dir = extras.get("run_dir") or run_dir_for(cfg)
     mesh.spawn(main, n, [ov for ov in argv if not ov.startswith("run_dir=")]
                + [f"run_dir={run_dir}", "multihost=1"])
@@ -238,12 +253,12 @@ def _train(cfg, extras: Dict[str, str], device, timings: Optional[Dict[str, floa
         if i % int(ckpt.save_model) == 0:
             print("saved:", trainer.save(models_dir, step_imgs))
 
-    def stopped(i: int, agreed=None) -> bool:
+    def stopped(i: int, agreed=None, due: bool = True) -> bool:
         """Whether to stop after iteration ``i``: on SIGTERM, or in a group
         on the vote that iteration ``i``'s step returned (``agreed``), read
-        every ``preempt_sync`` iterations on every rank."""
+        on every rank where ``due`` (every ``preempt_sync`` iterations)."""
         if voting:
-            stop = agreed is not None and i % preempt_sync == 0 and float(agreed) > 0.0
+            stop = agreed is not None and due and float(agreed) > 0.0
         else:
             stop = bool(stop_requested)
         if stop and is_main:
@@ -260,20 +275,27 @@ def _train(cfg, extras: Dict[str, str], device, timings: Optional[Dict[str, floa
     try:
         if K > 1:
             ix = trainer.loader.index_stream(start)
-            i = start
+            if voting:
+                trainer.chunks.prepare(chunk_lengths(start, total_iteration, K))
+                mesh.host_barrier()
+            i, k, agreed = start, 0, None
             while i < total_iteration:
-                if stopped(i):
+                # the vote is read where the last chunk crossed a multiple
+                # of preempt_sync
+                if stopped(i, agreed, i // preempt_sync > (i - k) // preempt_sync):
                     return run_dir
                 k = min(K - i % K, total_iteration - i)
                 rows = np.stack([trainer.device_cache.rows(*next(ix)) for _ in range(k)])
-                scalars = trainer.step_chunk(range(i + 1, i + k + 1), rows)
+                scalars = trainer.step_chunk(range(i + 1, i + k + 1), rows,
+                                             stop=bool(stop_requested))
+                agreed = scalars.pop("stop/agreed", None)
                 i += k
                 boundary_actions(i, scalars)
         else:
             it = trainer.device_iter()
             prof, agreed = None, None
             for i in range(start + 1, total_iteration + 1):
-                if stopped(i - 1, agreed):
+                if stopped(i - 1, agreed, (i - 1) % preempt_sync == 0):
                     return run_dir
                 if profile_dir and i == start + 4:
                     prof = profiling.start_trace(device)

@@ -7,6 +7,12 @@ one-centred gradient penalties as ``torch.autograd.grad(..., create_graph=
 True)`` on float32 inputs, so the outer backward differentiates through
 them; StyleGAN2's path-length penalty with its EMA baseline; and
 ``masked_loss``.
+
+The relativistic modes compare each logit with the other side's mean
+over the batch.  In a process group of more than one rank that is the
+global batch's mean (``mesh.global_mean``, differentiable), as the JAX
+step's sharded ``jit`` takes it; a rank's loss is then the mean of its own
+rows' terms, and the global loss the mean of the ranks' losses.
 """
 
 from __future__ import annotations
@@ -16,12 +22,16 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from dusty_gan_torch.parallel import mesh
+
 GAN_MODES = ("nsgan", "wgan", "lsgan", "hinge", "ragan", "rahinge", "ralsgan")
 RELATIVISTIC = ("ragan", "rahinge", "ralsgan")
 
 
 def _avg_diff(a, b):
-    return a - b.mean(dim=0, keepdim=True)
+    """``a`` less the batch mean of ``b``: over the global batch in a group
+    of more than one rank, else the plain mean (no collective)."""
+    return a - mesh.global_mean(b)
 
 
 def gan_loss_d(metric: str, pred_real, pred_fake, smoothing: float = 1.0):

@@ -9,10 +9,14 @@ counterpart here:
 * ``create_mesh`` and ``create_local_mesh``: the process group stands for
   the mesh, and a rank's own device for the local mesh (rank-0-only work,
   validation and image logging, runs on it and issues no collective);
-* ``batch_sharding`` and ``shard_batch``: each rank holds its
-  ``local_batch_slice`` of the global batch as an ordinary tensor (the
-  ``Loader`` yields it); the step averages the gradients over ranks with
-  ``all_reduce_mean_``, where XLA inserts the all-reduce itself;
+* ``batch_sharding`` and ``shard_batch``: each rank holds its share of
+  the global batch as an ordinary tensor (the ``Loader`` yields it; its
+  ``local_batch_slice`` of each accumulation round's rows, as the step's
+  ``local_draws`` reads it); the step averages the gradients over ranks
+  with ``all_reduce_mean_``, where XLA inserts the all-reduce itself,
+  and a mean over the global batch inside a loss is ``global_mean``,
+  whose backward all-reduces the gradient, where XLA differentiates
+  through the sharded mean;
 * ``replicated``: parameters are replicated by construction (same seed or
   the same checkpoint on every rank, the same averaged update);
 * ``shard_eval_inputs``: the evaluation CLIs stripe whole blocks and
@@ -36,6 +40,7 @@ import os
 import signal
 import socket
 import threading
+import warnings
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -94,8 +99,14 @@ def init_distributed(device) -> torch.device:
         init_method=f"tcp://{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}",
         rank=int(os.environ["RANK"]), world_size=int(os.environ["WORLD_SIZE"]),
         timeout=GROUP_TIMEOUT)
-    dist.all_reduce(torch.zeros(1))  # the barrier, over gloo
+    host_barrier()
     return device
+
+
+def host_barrier() -> None:
+    """Every rank waits here for every other: one all-reduce of a host
+    tensor, over gloo."""
+    dist.all_reduce(torch.zeros(1))
 
 
 def shutdown() -> None:
@@ -185,6 +196,29 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
     for t in tensors:
         t.copy_(flat[offset:offset + t.numel()].view_as(t))
         offset += t.numel()
+
+
+def global_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of ``x`` over dim 0 across every rank's rows, kept as dim 0
+    of size 1 (``x.mean(dim=0, keepdim=True)`` over the global batch; the
+    ranks hold equally many rows).  Differentiable: the local sum goes
+    through ``torch.distributed.nn``'s all-reduce (SUM), whose backward
+    all-reduces (SUMs) the gradient, so each rank's rows take the gradient
+    of every rank's use of the mean; with the step's average of the
+    parameter gradients over ranks this is the gradient of the global
+    loss (``tests/test_torch_multigpu.py`` holds it).  One collective
+    forward and one backward; without a group of more than one rank it is
+    the plain mean and issues none."""
+    if world_size() == 1:
+        return x.mean(dim=0, keepdim=True)
+    import torch.distributed.nn.functional as dist_nn
+
+    with warnings.catch_warnings():
+        # recent torch marks these autograd collectives deprecated; the
+        # loss needs their backward
+        warnings.simplefilter("ignore", FutureWarning)
+        total = dist_nn.all_reduce(x.sum(dim=0, keepdim=True), op=dist.ReduceOp.SUM)
+    return total / (x.shape[0] * world_size())
 
 
 def free_port() -> int:

@@ -26,18 +26,21 @@ parameters, the optimizer state, G_ema and ``pl_ema``); ``lr`` passes
 each update's learning rate where the optimizer's count lives on the
 card.
 
-In a process group (``parallel/mesh.py``) each rank steps on its
-``local_batch_slice`` of the global batch with its rows of the global
-draws (``local_draws``); each phase's gradients are averaged over ranks
-(one all-reduce of one flat bucket) before its optimizer's update, the
-path-length baseline takes the mean path length over ranks, and the
-logged scalars become global means through one all-reduce of a stacked
-vector that also carries this rank's stop flag (``stop/agreed`` in the
-result: above 0 when any rank asked to stop).  Parameters, optimizer state
-and G_ema then stay equal on every rank.  Without a group the step issues
-no collective.  The relativistic modes compare each logit with the mean
-of the other side over the batch, which the ranks do not share, so they
-raise in a group of more than one rank.
+In a process group (``parallel/mesh.py``) each rank steps on its share
+of the global batch with its rows of the global draws (``local_draws``:
+its ``local_batch_slice`` of each accumulation round's rows); each
+phase's gradients are averaged over ranks (one all-reduce of one flat
+bucket) before its optimizer's update, the path-length baseline takes
+the mean path length over ranks, and the logged scalars become global
+means through one all-reduce of a stacked vector that also carries this
+rank's stop flag (``stop/agreed`` in the result: above 0 when any rank
+asked to stop).  The flag is a bool, or a 0-d float32 tensor on the
+device, which a captured chunk (``train/graphs.py``) fills before each
+replay.  The relativistic modes compare each logit with the other side's
+mean over the global batch of each accumulation round
+(``mesh.global_mean`` in ``models/losses.py``, as the JAX step's sharded
+``jit`` takes it).  Parameters, optimizer state and G_ema then stay
+equal on every rank.  Without a group the step issues no collective.
 """
 
 from __future__ import annotations
@@ -154,22 +157,19 @@ def _map_rows(fn, *trees):
 
 def local_draws(draws: List[RoundDraws], process_index: int,
                 process_count: int) -> List[RoundDraws]:
-    """This rank's rows of an iteration's global draws: the A rounds are
-    joined into one global batch, its ``local_batch_slice`` is kept and
-    split into A local rounds, so that global row p meets the same draws at
-    every world size.  The path-length rows are sliced round by round
-    instead: they pair with no data row, and ``pl_ema`` is carried from
-    round to round, so local round r must hold global round r's rows."""
-    A = len(draws)
+    """This rank's rows of an iteration's global draws: local round r holds
+    this rank's ``local_batch_slice`` of global round r's rows, so that at
+    every world size round r meets global round r's draws, as the JAX
+    step's round r is global rows r*b..(r+1)*b on any mesh.  A rank's
+    batch is read the same way: its local round r is its share of global
+    round r.  Each round's relativistic means over the global round and the
+    path-length baseline carried from round to round then equal one
+    process's."""
     rows = lambda x: x[mesh.local_batch_slice(x.shape[0], process_index,  # noqa: E731
                                               process_count)]
-    fields = [f.name for f in dataclasses.fields(RoundDraws) if f.name != "pl"]
-    joined = {f: _map_rows(lambda *xs: torch.cat(xs), *(getattr(d, f) for d in draws))
-              for f in fields}
-    local = _map_rows(rows, joined)
-    return [RoundDraws(**_map_rows(lambda x: x.reshape(A, -1, *x.shape[1:])[r], local),
-                       pl=_map_rows(rows, draws[r].pl))
-            for r in range(A)]
+    return [RoundDraws(**{f.name: _map_rows(rows, getattr(d, f.name))
+                          for f in dataclasses.fields(RoundDraws)})
+            for d in draws]
 
 
 def _mean_scalars(rounds: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
@@ -203,10 +203,6 @@ class TrainStep:
         self.batch_size = int(batch_size)
         self.cdt = policy.compute_dtype
         self.distributed = mesh.distributed()
-        if self.relativistic and mesh.world_size() > 1:
-            raise NotImplementedError(
-                f"gan_mode={gan_mode} over {mesh.world_size()} ranks: a relativistic "
-                "loss needs the other side's mean over the global batch")
 
     @property
     def use_pl(self) -> bool:
@@ -263,11 +259,12 @@ class TrainStep:
                                    for p in g["params"] if p.grad is not None])
 
     def __call__(self, state: TrainState, batch: Dict[str, torch.Tensor],
-                 draws: List[RoundDraws], lr=None, stop: bool = False
+                 draws: List[RoundDraws], lr=None, stop=False
                  ) -> Dict[str, torch.Tensor]:
         """``lr``: None (each optimizer's schedule at its update count) or
         the (D, G) learning rates of this update.  ``stop``: this rank's
-        stop flag, voted on in a process group."""
+        stop flag (a bool, or a 0-d float32 tensor on the device), voted on
+        in a process group."""
         if len(draws) != self.A:
             raise ValueError(f"{len(draws)} rounds of draws for {self.A} rounds")
         G, D = state.G, state.D
@@ -305,9 +302,12 @@ class TrainStep:
         state.step += self.batch_size
         scalars = {**_mean_scalars(d_scalars), **_mean_scalars(g_scalars)}
         if self.distributed:
-            # a fill, not a copy from the host: the host does not wait for
-            # the step's work
-            flag = torch.full((), float(stop), device=x_real.device)
+            if isinstance(stop, torch.Tensor):
+                flag = stop.reshape(()).float()
+            else:
+                # a fill, not a copy from the host: the host does not wait
+                # for the step's work
+                flag = torch.full((), float(stop), device=x_real.device)
             vec = torch.stack([v.float() for v in scalars.values()] + [flag])
             mesh.all_reduce_mean_([vec])
             scalars = dict(zip(list(scalars) + ["stop/agreed"], vec.unbind()))

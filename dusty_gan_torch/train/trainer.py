@@ -36,12 +36,15 @@ and each step sends only its indices (``data/device_cache.py``).  Either
 way the batch stream is a function of the iteration alone.
 
 Ranks (``parallel/mesh.py``): in a process group of W ranks each rank
-holds the same state and trains on its ``local_batch_slice`` of the
-global batch of ``solver.batch_size`` (its ``Loader`` shard, or its rows
-of the device cache, which holds the whole split on every card), with its
-rows of the iteration's global draws; the step averages the gradients.
+holds the same state and trains on its share of the global batch of
+``solver.batch_size`` (its ``Loader`` shard, or its rows of the device
+cache, which holds the whole split on every card), its local round r
+being its share of global round r, with its rows of the iteration's
+global draws (``local_draws``); the step averages the gradients.
 Validation, image logging and checkpoints are the caller's to run on rank
-0 alone; ``validation`` issues no collective.
+0 alone; ``validation`` issues no collective.  Every ``gan_mode`` trains
+in a group: the relativistic ones take each side's mean over the global
+batch (``mesh.global_mean``).
 
 Adam (``next_lrs``): on CUDA both optimizers step in Adam's capturable
 mode from the first update on, per step and in chunks alike, with each
@@ -54,7 +57,11 @@ Chunks (``steps_per_call=K``, K > 1, which needs ``cache_device=true``):
 (``train/graphs.py``): on CUDA through one captured CUDA graph per chunk
 length, with each iteration's draws made eagerly from its own generator
 and its learning rate from the schedule; on the CPU eagerly through the
-same buffers.  The batches and draws are the per-step path's.
+same buffers.  The batches and draws are the per-step path's.  In a
+group each rank runs its rows of each iteration, the captured steps
+all-reduce over NCCL, and ``step_chunk`` takes this rank's stop flag and
+returns the vote in ``stop/agreed``; ``chunks.prepare`` captures a run's
+chunk lengths up front on every rank.
 """
 
 from __future__ import annotations
@@ -90,8 +97,6 @@ from dusty_gan_torch.train.step import (PL_BATCH_SHRINK, TrainStep, fetch_reals,
 from dusty_gan_torch.utils.postprocess import postprocess
 
 TRAIN_STREAM, VALIDATION_STREAM, FIXED_LATENT_STREAM, GENERATE_STREAM = 0, 1, 2, 3
-CHUNKS_IN_GROUP = ("steps_per_call > 1 in a process group (num_devices > 1 or multihost) "
-                   "is not supported yet: see ROADMAP.md, chunk mode at world size > 1")
 LOGGED_SAMPLES = 16  # latents of the logged samples, at most
 
 
@@ -124,8 +129,6 @@ class Trainer:
             raise ValueError(
                 "steps_per_call needs cache_device=true (the scan body "
                 "gathers batches from the device-resident dataset)")
-        if self.steps_per_call > 1 and mesh.distributed():
-            raise NotImplementedError(CHUNKS_IN_GROUP)
         self.rank, self.world = mesh.rank(), mesh.world_size()
         self.cfg = cfg
         self.device = device
@@ -308,14 +311,17 @@ class Trainer:
             set_lr(opt, v)  # what a checkpoint records
         return scalars
 
-    def step_chunk(self, iters, rows: np.ndarray, draws=None) -> Dict[str, torch.Tensor]:
+    def step_chunk(self, iters, rows: np.ndarray, draws=None,
+                   stop: bool = False) -> Dict[str, torch.Tensor]:
         """Consecutive iterations ``iters`` (1-based) in one call: ``rows``
-        (k, B) holds each one's device-cache rows (``device_cache.rows``),
-        ``draws`` k lists of RoundDraws (default: ``draws(i)``; a test
-        passes the JAX package's).  Returns the last iteration's scalars."""
+        (k, B / W) holds each one's device-cache rows of this rank
+        (``device_cache.rows``), ``draws`` k lists of RoundDraws (default:
+        ``draws(i)``; a test passes the JAX package's), ``stop`` this
+        rank's stop flag, voted on in a group.  Returns the last
+        iteration's scalars."""
         if self.chunks is None:
             raise ValueError("step_chunk needs steps_per_call > 1")
-        return self.chunks.run(iters, rows, draws)
+        return self.chunks.run(iters, rows, draws, stop)
 
     @torch.no_grad()
     def generate(self, ema: bool = True, latent: Optional[torch.Tensor] = None,

@@ -13,6 +13,7 @@ import torch
 from dusty_gan_tpu.utils import calibration as jcal
 from dusty_gan_tpu.utils.setup import make_eval_generator as jax_make_eval_generator
 
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from dusty_gan_torch.utils import calibration as tcal
 from dusty_gan_torch.utils.setup import make_eval_generator
 

@@ -24,6 +24,7 @@ import torch
 from dusty_gan_tpu.metrics import chamfer as jax_chamfer
 from dusty_gan_tpu.metrics.chamfer_pallas import nn_pallas
 
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from dusty_gan_torch import kernels
 from dusty_gan_torch.metrics import chamfer_cuda
 from dusty_gan_torch.metrics.chamfer import (chamfer_distance, chamfer_distance_eval,

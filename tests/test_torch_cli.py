@@ -24,6 +24,7 @@ from dusty_gan_tpu.train.checkpoint import save_checkpoint as jax_save_checkpoin
 from dusty_gan_tpu.train.state import TrainState as JaxTrainState
 from dusty_gan_tpu.utils import torch_export as te
 
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from dusty_gan_torch.cli.evaluate_synthesis import main, latents
 from dusty_gan_torch.config import compose, load_config, save_config
 from dusty_gan_torch.data.synthetic import build_synthetic_kitti

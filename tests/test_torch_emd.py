@@ -37,6 +37,7 @@ from dusty_gan_tpu.metrics.cov_mmd_1nna import _pairwise_emd_rowwise as jax_pair
 from dusty_gan_tpu.metrics.cov_mmd_1nna import compute_cov_mmd_1nna as jax_cov
 from dusty_gan_tpu.metrics.emd_pallas import emd_block_pallas, emd_pair_pallas
 
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from dusty_gan_torch import kernels
 from dusty_gan_torch.metrics import emd_cuda
 from dusty_gan_torch.metrics.cov_mmd_1nna import compute_cov_mmd_1nna, pairwise_emd

@@ -12,6 +12,7 @@ from dusty_gan_tpu.data.loader import Loader as JaxLoader
 from dusty_gan_tpu.data.synthetic import build_synthetic_kitti as jax_build
 from dusty_gan_tpu.geometry import lidar as jl
 
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from dusty_gan_torch.data import datasets as tds
 from dusty_gan_torch.data.loader import Loader
 from dusty_gan_torch.data.synthetic import build_synthetic_kitti

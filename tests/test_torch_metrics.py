@@ -21,6 +21,7 @@ from dusty_gan_tpu.metrics.fps import downsample_point_clouds as jax_downsample
 from dusty_gan_tpu.metrics.fps import furthest_point_sampling as jax_fps
 from dusty_gan_tpu.metrics.swd import compute_swd as jax_swd
 
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from dusty_gan_torch import kernels
 from dusty_gan_torch.metrics import jsd as tjsd
 from dusty_gan_torch.metrics.chamfer_cuda import cd_block, cd_block_reference

@@ -15,6 +15,7 @@ from dusty_gan_tpu.config import compose as jax_compose
 from dusty_gan_tpu.models.factory import define_G as jax_define_G
 from dusty_gan_tpu.utils import torch_export as te
 
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from dusty_gan_torch.config import compose
 from dusty_gan_torch.models.dusty import DUSty1, DUSty2
 from dusty_gan_torch.models.factory import define_G

@@ -17,75 +17,95 @@ two ranks over gloo (``parallel/mesh.py``).
   Cases: DUSty-II at A = 1 with the path-length penalty on (its baseline
   takes the mean over ranks), A = 2 accumulation rounds a rank, and A = 2
   with the path-length penalty (its baseline carried from round to round:
-  local round r holds global round r's path-length rows).
+  local round r holds global round r's path-length rows); and the
+  relativistic modes, whose losses take each side's mean over the global
+  batch (``mesh.global_mean``): ragan at A = 2 (each round's own global
+  rows), rahinge, ralsgan with the path-length penalty.  In those modes a
+  constant added to every logit cancels from each difference, so D's last
+  bias has a gradient of exactly 0 in one process, and the ranks' sum of
+  cancelling terms rounds: that leaf is held at 1e-5 of D's largest
+  gradient; Adam then moves the bias by up to one learning rate, so the
+  raw logit means logged at step 2 (``loss/D/output/*``) are held at that
+  much more (the losses, which the bias cancels from, keep 1e-6).
 * The same two-rank step against the JAX package's step
   (``make_train_step``) on the whole batch: ``torch_parity``'s
   ``dusty2_accum2_pl`` (DUSty-II, A = 2, path-length penalty, two steps)
-  with JAX's draws, each rank on its rows of them, rank 0 held by the
-  checks and tolerances of ``tests/test_torch_train_step.py``, the two
-  ranks bit-equal.
-* ``cli.train`` with ``num_devices=2 device=cpu``: rank 0 alone writes
-  (each scalar logged once), a resumed run ends bit-identical to the
-  uninterrupted one, a SIGTERM sent to rank 1 alone stops both ranks at
-  one iteration with rank 0's checkpoint and exit 0 (``multihost=1``
-  ranks, as torchrun starts them), ``steps_per_call=2`` in a group
-  raises, and ``multihost=1`` with a partial environment names what is
-  missing.  A relativistic loss refuses more than one rank.
+  and one case of each relativistic mode (``JAX_RELATIVISTIC``) with JAX's
+  draws, each rank on its rows of them, rank 0 held by the checks and
+  tolerances of ``tests/test_torch_train_step.py`` (scalars, weights,
+  Adam's moments: after one step with beta1 = 0 the first moments are the
+  gradients), the two ranks bit-equal.
+* ``mesh.global_mean`` on two ranks: its input gradients against autograd
+  of the summed losses in one process (rtol 1e-6, atol 1e-7), which holds
+  that its all-reduce's backward sums; a chunk's stop buffer votes.
 
-The evaluation CLIs' ``--multihost`` is tested in
-``tests/test_torch_parallel.py``.
+``cli.train`` on two ranks, per step and in chunks, is tested in
+``tests/test_torch_multigpu_cli.py``, the evaluation CLIs' ``--multihost``
+in ``tests/test_torch_parallel.py``.
 """
 
 import json
-import os
 import os.path as osp
-import signal
-import time
 import types
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
-from dusty_gan_torch.cli.train import main as train_main
 from dusty_gan_torch.config import compose
 from dusty_gan_torch.data.datasets import define_dataset
 from dusty_gan_torch.data.loader import Loader
 from dusty_gan_torch.data.synthetic import build_synthetic_kitti
+from dusty_gan_torch.models.losses import RELATIVISTIC
 from dusty_gan_torch.parallel import mesh
-from dusty_gan_torch.train.step import TrainStep
 from dusty_gan_torch.train.trainer import Trainer
 
 from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from torch_parity import (check_step_adam, check_step_discriminator, check_step_generators,
-                          check_step_scalars, jax_step_case, launch_ranks, rank_env,
-                          run_ranks, update_slack, wait_ranks)
+                          check_step_scalars, jax_step_case, run_ranks, update_slack)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CONFIG_DIR = osp.join(REPO, "configs")
 TINY = ["model=dusty2_dcgan_eqlr", "model.gen.in_ch=16", "model.gen.ch_base=8",
         "model.gen.ch_max=16", "model.dis.ch_base=8", "model.dis.ch_max=16"]
-CADENCE = ["solver.batch_size=4", "solver.checkpoint.save_stats=2",
-           "solver.checkpoint.test=4", "solver.checkpoint.save_model=3",
-           "validate_samples=6", "device=cpu"]
-# batch, rounds, pl weight
-STEP_CASES = {"A1_pl": (4, 1, 1.0), "A2": (8, 2, 0.0), "A2_pl": (8, 2, 1.0)}
+# batch, rounds, pl weight, gan_mode
+STEP_CASES = {"A1_pl": (4, 1, 1.0, "nsgan"), "A2": (8, 2, 0.0, "nsgan"),
+              "A2_pl": (8, 2, 1.0, "nsgan"), "ragan_A2": (8, 2, 0.0, "ragan"),
+              "rahinge": (4, 1, 0.0, "rahinge"), "ralsgan_pl": (4, 1, 1.0, "ralsgan")}
 JAX_CASE = "dusty2_accum2_pl"  # torch_parity.STEP_CASES: A = 2 with the path-length term
+# torch_parity.STEP_CASES of the relativistic modes: ragan at A = 2 (the
+# mean over each round's global rows), rahinge on the plain generator,
+# ralsgan on DUSty-I with the path-length term
+JAX_RELATIVISTIC = {"ragan": "dusty2_ragan_accum2", "rahinge": "plain_rahinge",
+                    "ralsgan": "dusty1_ralsgan_pl"}
+CHUNKED = ["steps_per_call=2", "cache_device=true"]
 
 CHILD_STEP = """
 import json, sys
 import numpy as np, torch
+import torch.nn.functional as F
 from dusty_gan_torch.config import compose
 from dusty_gan_torch.parallel import mesh
 from dusty_gan_torch.train.step import TrainStep, local_draws
 from dusty_gan_torch.train.trainer import Trainer
 
 mesh.init_distributed("cpu")
-for name, overrides in json.loads(sys.argv[2]).items():
+cases = json.loads(sys.argv[2])
+
+
+def rank_rows(n, rounds):
+    # this rank's rows of a global batch of n: its share of each round
+    b = n // rounds
+    return np.concatenate([np.arange(b)[mesh.local_batch_slice(b)] + r * b
+                           for r in range(rounds)])
+
+
+for name, overrides in cases.items():
     trainer = Trainer(compose(sys.argv[1], overrides), torch.device("cpu"), verbose=False)
     with np.load(sys.argv[3] % name) as z:
         batches = [z["b1"], z["b2"]]
-    rows = mesh.local_batch_slice(batches[0].shape[0])
+    rows = rank_rows(batches[0].shape[0], trainer.num_accumulation)
     out = {"scalars1": trainer.step(1, {"depth": batches[0][rows]})}
     st = trainer.state
     out["grads"] = {f"{m}.{n}": p.grad.clone() for m, net in (("G", st.G), ("D", st.D))
@@ -94,17 +114,35 @@ for name, overrides in json.loads(sys.argv[2]).items():
     out["state"] = {m: getattr(st, m).state_dict() for m in ("G", "D", "G_ema")}
     out["pl_ema"] = st.pl_ema
     torch.save(out, sys.argv[4] % (name, mesh.rank()))
-case = torch.load(sys.argv[5], weights_only=False)
-step, state = case["step"], case["state"]
-step.distributed = True  # made outside the group
-scalars = []
-for batch, draws in case["inputs"]:
-    rows = mesh.local_batch_slice(batch["depth"].shape[0])
-    scalars.append(step(state, {"depth": batch["depth"][rows]},
-                        local_draws(draws, mesh.rank(), mesh.world_size())))
-torch.save({"state": state, "scalars": scalars}, sys.argv[4] % ("jax", mesh.rank()))
+for name, case in torch.load(sys.argv[5], weights_only=False).items():
+    step, state = case["step"], case["state"]
+    step.distributed = True  # made outside the group
+    scalars = []
+    for batch, draws in case["inputs"]:
+        rows = rank_rows(batch["depth"].shape[0], step.A)
+        scalars.append(step(state, {"depth": batch["depth"][rows]},
+                            local_draws(draws, mesh.rank(), mesh.world_size())))
+    torch.save({"state": state, "scalars": scalars}, sys.argv[4] % ("jax_" + name, mesh.rank()))
+
+# global_mean: forward and the gradient of this rank's loss
+gen = torch.Generator().manual_seed(0)
+x, w = torch.randn(8, 3, generator=gen), torch.rand(8, 3, generator=gen)
+rows = mesh.local_batch_slice(8)
+xr = x[rows].clone().requires_grad_(True)
+m = mesh.global_mean(xr)
+(F.softplus(xr - m) * w[rows]).mean().backward()
+out = {"mean": m.detach(), "grad": xr.grad}
+
+# a chunk with rank 1's stop flag set, then one with none set
+cfg = compose(sys.argv[1], cases["A2"] + CHUNKED)
+trainer = Trainer(cfg, torch.device("cpu"), verbose=False)
+ix = trainer.loader.index_stream(0)
+for k, stop in ((1, mesh.rank() == 1), (3, False)):
+    rows = np.stack([trainer.device_cache.rows(*next(ix)) for _ in range(2)])
+    out[f"agreed_{k}"] = trainer.step_chunk([k, k + 1], rows, stop=stop)["stop/agreed"]
+torch.save(out, sys.argv[4] % ("global", mesh.rank()))
 mesh.shutdown()
-"""
+""".replace("CHUNKED", repr(CHUNKED))
 
 @pytest.fixture(scope="module")
 def root(tmp_path_factory):
@@ -118,21 +156,23 @@ def shim(tmp_path_factory):
 
 
 def _step_overrides(root, name):
-    batch, rounds, pl = STEP_CASES[name]
+    batch, rounds, pl, mode = STEP_CASES[name]
     return TINY + [f"dataset.root={root}", "enable_amp=false", "cache_dataset=false",
                    f"solver.batch_size={batch}", f"solver.num_accumulation={rounds}",
-                   f"solver.loss.pl={pl}"]
+                   f"solver.loss.pl={pl}", f"solver.gan_mode={mode}"]
 
 
 @pytest.fixture(scope="module")
 def step_runs(root, shim, tmp_path_factory):
-    """Each case's two batches, and its two steps on two ranks; and
-    ``JAX_CASE`` run in JAX, its steps on two ranks (one launch for
-    every case)."""
+    """Each case's two batches, and its two steps on two ranks; ``JAX_CASE``
+    and ``JAX_RELATIVISTIC`` run in JAX, their steps on two ranks;
+    ``global_mean`` on two ranks; two chunks with stop flags (one launch
+    for all)."""
     base = tmp_path_factory.mktemp("steps")
-    jax_case = jax_step_case(JAX_CASE, jit=True)
-    torch.save({"state": jax_case.state, "step": jax_case.step, "inputs": jax_case.inputs},
-               base / "jax_case.pt")
+    jax_cases = {name: jax_step_case(name, jit=True)
+                 for name in (JAX_CASE, *JAX_RELATIVISTIC.values())}
+    torch.save({name: {"state": c.state, "step": c.step, "inputs": c.inputs}
+                for name, c in jax_cases.items()}, base / "jax_case.pt")
     overrides = {name: _step_overrides(root, name) for name in STEP_CASES}
     batches = {}
     for name, ov in overrides.items():
@@ -143,7 +183,7 @@ def step_runs(root, shim, tmp_path_factory):
     run_ranks(["-c", CHILD_STEP, CONFIG_DIR, json.dumps(overrides),
                str(base / "batches_%s.npz"), str(base / "%s_%d.pt"),
                str(base / "jax_case.pt")], shim)
-    return base, overrides, batches, jax_case
+    return base, overrides, batches, jax_cases
 
 
 @pytest.fixture(scope="module", params=sorted(STEP_CASES))
@@ -152,8 +192,11 @@ def step_case(request, step_runs):
     base, overrides, batches, _ = step_runs
     name = request.param
     ranks = [torch.load(base / f"{name}_{r}.pt", weights_only=False) for r in range(2)]
-    one = Trainer(compose(CONFIG_DIR, overrides[name]), torch.device("cpu"), verbose=False)
-    want = {"scalars1": one.step(1, {"depth": batches[name][0]})}
+    cfg = compose(CONFIG_DIR, overrides[name])
+    one = Trainer(cfg, torch.device("cpu"), verbose=False)
+    want = {"scalars1": one.step(1, {"depth": batches[name][0]}),
+            "relativistic": STEP_CASES[name][3] in RELATIVISTIC,
+            "lr_D": float(cfg.solver.lr.alpha.dis)}
     st = one.state
     want["grads"] = {f"{m}.{n}": p.grad.clone() for m, net in (("G", st.G), ("D", st.D))
                      for n, p in net.named_parameters()}
@@ -170,9 +213,15 @@ def step_case(request, step_runs):
 def test_step_gradients_equal_one_process(step_case):
     ranks, want = step_case
     assert set(ranks[0]["grads"]) == set(want["grads"])
+    d_max = max(float(g.abs().max()) for k, g in want["grads"].items() if k.startswith("D."))
     for k, g in want["grads"].items():
         assert torch.equal(ranks[0]["grads"][k], ranks[1]["grads"][k]), k
         atol = max(1e-7, 1e-5 * float(g.abs().max()))
+        if want["relativistic"] and not g.any():
+            # D's last bias: a constant added to every logit cancels from
+            # each relativistic difference, so one process's gradient is
+            # exactly 0 and the ranks' sum of cancelling terms rounds
+            atol = 1e-5 * d_max
         np.testing.assert_allclose(ranks[0]["grads"][k].numpy(), g.numpy(), rtol=1e-5,
                                    atol=atol, err_msg=k)
 
@@ -185,7 +234,12 @@ def test_step_scalars_are_global_means(step_case):
         assert float(ranks[0][step]["stop/agreed"]) == 0.0
         for k, v in want[step].items():
             assert torch.equal(ranks[0][step][k], ranks[1][step][k]), k
-            np.testing.assert_allclose(float(got[k]), float(v), rtol=1e-5, atol=1e-6,
+            atol = 1e-6
+            if want["relativistic"] and step == "scalars2" and "/output/" in k:
+                # the raw logits carry D's last bias, which step 1 moved by
+                # up to one learning rate on the ranks' rounding (above)
+                atol += want["lr_D"]
+            np.testing.assert_allclose(float(got[k]), float(v), rtol=1e-5, atol=atol,
                                        err_msg=k)
 
 
@@ -210,8 +264,13 @@ def jax_ranks(step_runs):
     """``JAX_CASE`` on two ranks, each on its rows of JAX's global draws, as
     ``torch_parity``'s checks take it (rank 0's state and scalars), and the
     two ranks' outputs."""
-    base, _, _, case = step_runs
-    ranks = [torch.load(base / f"jax_{r}.pt", weights_only=False) for r in range(2)]
+    return _jax_ranks(step_runs, JAX_CASE)
+
+
+def _jax_ranks(step_runs, name):
+    base, _, _, cases = step_runs
+    case = cases[name]
+    ranks = [torch.load(base / f"jax_{name}_{r}.pt", weights_only=False) for r in range(2)]
     got = types.SimpleNamespace(**vars(case))
     got.state = ranks[0]["state"]
     got.scalars = [({k: v for k, v in sc.items() if k != "stop/agreed"}, jsc)
@@ -227,7 +286,30 @@ def test_two_ranks_match_jax_step(jax_ranks, check):
 
 
 def test_two_ranks_of_jax_case_are_equal(jax_ranks):
-    _, (a, b) = jax_ranks
+    _assert_ranks_equal(jax_ranks[1])
+
+
+@pytest.fixture(scope="module", params=sorted(JAX_RELATIVISTIC))
+def jax_relativistic(request, step_runs):
+    """A relativistic mode's JAX case on two ranks (see ``jax_ranks``)."""
+    return _jax_ranks(step_runs, JAX_RELATIVISTIC[request.param])
+
+
+@pytest.mark.parametrize("check", [check_step_scalars, check_step_generators,
+                                   check_step_discriminator, check_step_adam],
+                         ids=lambda f: f.__name__)
+def test_relativistic_two_ranks_match_jax_step(jax_relativistic, check):
+    """Each side's mean over the global batch: the two ranks' step against
+    JAX's on the whole batch (Adam's first moments are the gradients)."""
+    check(jax_relativistic[0])
+
+
+def test_relativistic_two_ranks_are_equal(jax_relativistic):
+    _assert_ranks_equal(jax_relativistic[1])
+
+
+def _assert_ranks_equal(ranks):
+    a, b = ranks
     for m in ("G", "D", "G_ema"):
         for k, v in getattr(a["state"], m).state_dict().items():
             assert torch.equal(v, getattr(b["state"], m).state_dict()[k]), (m, k)
@@ -236,99 +318,36 @@ def test_two_ranks_of_jax_case_are_equal(jax_ranks):
         assert all(torch.equal(v, sb[k]) for k, v in sa.items())
 
 
-def _train_args(root, run_dir, *extra):
-    return [*TINY, f"dataset.root={root}", f"run_dir={run_dir}", *CADENCE, *extra]
+def test_global_mean_gradient_sums_over_ranks(step_runs):
+    """``mesh.global_mean`` on two ranks: the forward is the whole batch's
+    mean, and each rank's input gradient of its own loss equals the rows
+    of the gradient of the sum of both ranks' losses in one process (so
+    the all-reduce's backward sums; with the step's 1/W average of the
+    parameter gradients, that is the gradient of the mean loss)."""
+    base = step_runs[0]
+    ranks = [torch.load(base / f"global_{r}.pt", weights_only=False) for r in range(2)]
+    gen = torch.Generator().manual_seed(0)
+    x, w = torch.randn(8, 3, generator=gen), torch.rand(8, 3, generator=gen)
+    x.requires_grad_(True)
+    m = x.mean(dim=0, keepdim=True)
+    total = 0.0
+    for r in range(2):
+        rows = mesh.local_batch_slice(8, r, 2)
+        total = total + (F.softplus(x[rows] - m) * w[rows]).mean()
+    total.backward()
+    for r, got in enumerate(ranks):
+        rows = mesh.local_batch_slice(8, r, 2)
+        np.testing.assert_allclose(got["mean"].numpy(), m.detach().numpy(), rtol=1e-6,
+                                   atol=1e-7)
+        np.testing.assert_allclose(got["grad"].numpy(), x.grad[rows].numpy(), rtol=1e-6,
+                                   atol=1e-7)
 
 
-@pytest.fixture(scope="module")
-def spawned(root, shim, tmp_path_factory):
-    """``num_devices=2``: a 6-iteration run, and one resumed from its
-    iteration-3 checkpoint."""
-    base = tmp_path_factory.mktemp("spawned")
-    with pytest.MonkeyPatch.context() as mp:
-        for k, v in rank_env(shim).items():
-            mp.setenv(k, v)
-        full = train_main(_train_args(root, base / "full", "num_devices=2",
-                                      "total_iterations=6"))
-        mid = osp.join(full, "models", "checkpoint_0000000012.pth")
-        resumed = train_main(_train_args(root, base / "resumed", "num_devices=2",
-                                         "total_iterations=6", f"resume={mid}"))
-    return full, resumed
-
-
-def test_spawned_ranks_write_once(spawned):
-    full, _ = spawned
-    with open(osp.join(full, "scalars.jsonl")) as f:
-        rows = [json.loads(line) for line in f]
-    seen = [(r["step"], k) for r in rows for k in r if k not in ("t", "step")]
-    assert len(seen) == len(set(seen))
-    assert {s for s, _ in seen} == {4, 8, 16, 24}
-    assert (16, "score/mmd-cd") in seen and (24, "perf/scans_per_sec") in seen
-    assert osp.exists(osp.join(full, ".hydra", "config.yaml"))
-    assert sorted(os.listdir(osp.join(full, "models"))) == [
-        "checkpoint_0000000012.pth", "checkpoint_0000000024.pth"]
-    ckpt = torch.load(osp.join(full, "models", "checkpoint_0000000024.pth"),
-                      weights_only=True)
-    assert ckpt["step"] == 24
-
-
-def test_spawned_resume_is_bit_identical(spawned):
-    a, b = (torch.load(osp.join(d, "models", "checkpoint_0000000024.pth"), weights_only=True)
-            for d in spawned)
-    for net in ("G", "D", "G_ema"):
-        for k, v in a[net].items():
-            assert torch.equal(v, b[net][k]), (net, k)
-    for opt in ("optim_G", "optim_D"):
-        for i, s in a[opt]["state"].items():
-            for k in ("exp_avg", "exp_avg_sq"):
-                assert torch.equal(s[k], b[opt]["state"][i][k]), (opt, i, k)
-
-
-def test_sigterm_to_one_rank_stops_both(root, shim, tmp_path):
-    run_dir = tmp_path / "run"
-    procs = launch_ranks(["-m", "dusty_gan_torch.cli.train",
-                          *_train_args(root, run_dir, "multihost=1", "total_iterations=400",
-                                       "solver.checkpoint.test=1000", "preempt_sync=2")],
-                         shim)
-    try:
-        deadline = time.monotonic() + 90
-        while not osp.exists(run_dir / "scalars.jsonl") or \
-                '"step": 8' not in (run_dir / "scalars.jsonl").read_text():
-            assert time.monotonic() < deadline and procs[0].poll() is None
-            time.sleep(0.2)
-        os.kill(procs[1].pid, signal.SIGTERM)
-    finally:
-        res = wait_ranks(procs, timeout=90)
-    assert [code for code, _ in res] == [0, 0], res[1][1][-3000:]
-    k0 = [int(line.split("iteration ")[1].split(":")[0]) for line in res[0][1].splitlines()
-          if line.startswith("SIGTERM: checkpointed")]
-    k1 = [int(line.rsplit(" ", 1)[1]) for line in res[1][1].splitlines()
-          if line.startswith("SIGTERM vote: rank 1 stopped")]
-    assert len(k0) == 1 and k0 == k1 and k0[0] % 2 == 0 and 2 < k0[0] < 400
-    assert osp.exists(run_dir / "models" / f"checkpoint_{k0[0] * 4:010d}.pth")
-    assert "saved final" not in res[0][1]
-
-
-def test_steps_per_call_in_a_group_raises(root, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_main(_train_args(root, tmp_path, "num_devices=2", "steps_per_call=2",
-                               "cache_device=true", "total_iterations=2"))
-
-
-def test_multihost_names_missing_environment(root, tmp_path, monkeypatch):
-    for k in mesh.ENV:
-        monkeypatch.delenv(k, raising=False)
-    monkeypatch.setenv("RANK", "1")
-    monkeypatch.setenv("MASTER_PORT", "29500")
-    with pytest.raises(SystemExit, match="missing: WORLD_SIZE, LOCAL_RANK, MASTER_ADDR"):
-        train_main(_train_args(root, tmp_path, "multihost=1", "total_iterations=1"))
-    assert not mesh.distributed()
-
-
-@pytest.mark.parametrize("mode", ["ragan", "rahinge", "ralsgan"])
-def test_relativistic_modes_refuse_more_than_one_rank(monkeypatch, mode):
-    TrainStep(None, gan_mode=mode)
-    monkeypatch.setattr(mesh, "world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match=mode):
-        TrainStep(None, gan_mode=mode)
-    TrainStep(None, gan_mode="nsgan")
+def test_chunk_stop_buffer_votes(step_runs):
+    """A chunk on two ranks where rank 1 alone passed its stop flag
+    returns ``stop/agreed`` 0.5 on both; the next chunk, with no flag,
+    0."""
+    base = step_runs[0]
+    for r in range(2):
+        got = torch.load(base / f"global_{r}.pt", weights_only=False)
+        assert float(got["agreed_1"]) == 0.5 and float(got["agreed_3"]) == 0.0, got

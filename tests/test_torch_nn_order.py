@@ -32,6 +32,7 @@ from hypothesis import strategies as st
 
 from dusty_gan_tpu.metrics.chamfer_pallas import nn_pallas
 
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from dusty_gan_torch.metrics import chamfer_cuda
 from dusty_gan_torch.metrics.chamfer_cuda import (GROUP, _fma, _sq_dist_fma, box_lower_bound,
                                                   morton_order, nn_layout,

@@ -14,6 +14,7 @@ from dusty_gan_tpu.ops import gumbel as jgum
 from dusty_gan_tpu.ops import linear as jlin
 from dusty_gan_tpu.ops import padding as jpad
 
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from dusty_gan_torch.ops.activation import FusedLeakyReLU, fused_leaky_relu
 from dusty_gan_torch.ops.gumbel import gumbel_sigmoid, logistic_noise
 from dusty_gan_torch.ops.linear import equal_lr_convt, equal_lr_proj

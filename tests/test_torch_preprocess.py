@@ -32,6 +32,7 @@ from dusty_gan_tpu.data import preprocess as jp
 from dusty_gan_tpu.geometry.lidar import Lidar as JaxLidar
 from dusty_gan_tpu.geometry.render import bilinear_rasterizer as jax_rasterizer
 
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from dusty_gan_torch.cli.process_kitti import main as process_kitti_main
 from dusty_gan_torch.data import preprocess as tp
 from dusty_gan_torch.geometry.lidar import Lidar

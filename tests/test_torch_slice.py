@@ -22,6 +22,7 @@ from dusty_gan_tpu.metrics.jsd import compute_jsd as jax_jsd
 from dusty_gan_tpu.metrics.swd import compute_swd as jax_swd
 from dusty_gan_tpu.utils.setup import make_eval_generator as jax_make_eval_generator
 
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from dusty_gan_torch.cli import evaluate_synthesis as es
 from dusty_gan_torch.data import datasets as tds
 from dusty_gan_torch.data.synthetic import build_synthetic_kitti

@@ -262,6 +262,14 @@ STEP_CASES = {
     # them (held on two ranks, test_torch_multigpu.py)
     "dusty2_accum2_pl": ("dusty2/dcgan_eqlr", 2, "nsgan", {"gan": 1.0, "gp": 1.0, "pl": 2.0},
                          (1.0, 1), 2),
+    # the relativistic modes on two ranks, each side's mean over the global
+    # batch of each round (test_torch_multigpu.py)
+    "dusty2_ragan_accum2": ("dusty2/dcgan_eqlr", 2, "ragan",
+                            {"gan": 1.0, "gp": 1.0, "pl": 0.0}, (1.0, 1), 1),
+    "plain_rahinge": ("none/dcgan_eqlr", 1, "rahinge", {"gan": 1.0, "gp": 1.0, "pl": 0.0},
+                      (1.0, 1), 1),
+    "dusty1_ralsgan_pl": ("dusty1/dcgan_eqlr", 1, "ralsgan",
+                          {"gan": 1.0, "gp": 1.0, "pl": 2.0}, (1.0, 1), 1),
     # from random Adam moments after 3 updates, carried by adam_state_dict:
     # the learning rate halves between the two steps (updates 3 and 4)
     "plain_decay": ("none/dcgan_eqlr", 1, "hinge", {"gan": 1.0, "gp": 0.5, "pl": 0.0},
@@ -459,8 +467,9 @@ def jax_step_case(name, jit=False):
 
 def run_step_case(name):
     """Run ``STEP_CASES[name]`` in both frameworks from the same state, batch
-    and draws."""
-    case = jax_step_case(name)
+    and draws (JAX's Gumbel noise recorded from one compiled generator
+    pass: op by op it takes ~35 s a case on a loaded host)."""
+    case = jax_step_case(name, jit=True)
     case.scalars = [(case.step(case.state, batch, draws), jsc)
                     for (batch, draws), jsc in zip(case.inputs, case.jscalars)]
     return case
