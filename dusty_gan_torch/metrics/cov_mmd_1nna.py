@@ -28,6 +28,7 @@ import torch
 from dusty_gan_torch.metrics.chamfer_cuda import cd_block
 from dusty_gan_torch.metrics.emd_cuda import emd_block
 from dusty_gan_torch.parallel import mesh
+from dusty_gan_torch.utils import profiling
 
 METRICS = ("cd", "emd")
 
@@ -183,9 +184,10 @@ def compute_cov_mmd_1nna(pcs_gen: torch.Tensor, pcs_ref: torch.Tensor,
     clouds against reference clouds, both (B, N, 3) on one device, for each
     metric of ``metrics`` ("cd", "emd").  ``timings``, when given, receives
     the wall seconds of each metric's three matrices and its scores as
-    ``pairwise_<metric>``.  ``process_shard``: every rank of the process
-    group calls this with the same clouds, and the matrices' block-rows are
-    striped over the ranks."""
+    ``pairwise_<metric>``; the scores on the host are the tracer's span
+    ``<metric>.scores`` (``utils/profiling.py``).  ``process_shard``: every
+    rank of the process group calls this with the same clouds, and the
+    matrices' block-rows are striped over the ranks."""
     check_metrics(tuple(metrics))
     results: Dict[str, float] = {}
     for metric in metrics:
@@ -194,10 +196,11 @@ def compute_cov_mmd_1nna(pcs_gen: torch.Tensor, pcs_ref: torch.Tensor,
         m_rr = pairwise(pcs_ref, pcs_ref, batch_size, verbose, process_shard)
         m_rg = pairwise(pcs_ref, pcs_gen, batch_size, verbose, process_shard)
         m_gg = pairwise(pcs_gen, pcs_gen, batch_size, verbose, process_shard)
-        for k, v in _compute_cov_mmd(m_rg).items():
-            results[f"{k}-{metric}"] = v
-        for k, v in _compute_nna(m_rr, m_rg, m_gg).items():
-            results[f"1-nn-{k}-{metric}"] = v
+        with profiling.span(f"{metric}.scores"):
+            for k, v in _compute_cov_mmd(m_rg).items():
+                results[f"{k}-{metric}"] = v
+            for k, v in _compute_nna(m_rr, m_rg, m_gg).items():
+                results[f"1-nn-{k}-{metric}"] = v
         if timings is not None:  # each matrix ends in a copy to the host
             timings[f"pairwise_{metric}"] = time.perf_counter() - t
     return results

@@ -7,11 +7,16 @@ Kept exactly:
   and are never selected (dropped pixels back-project to the origin);
 * running distances start at 1e10;
 * ties go to the first index (``argmax``).
+
+The loop is the tracer's span ``fps``, and its k - 1 steps are added to
+the counter ``fps.steps`` once a call (``utils/profiling.py``).
 """
 
 from __future__ import annotations
 
 import torch
+
+from dusty_gan_torch.utils import profiling
 
 
 def _sq_norm(v: torch.Tensor) -> torch.Tensor:
@@ -29,12 +34,14 @@ def furthest_point_sampling(xyz: torch.Tensor, k: int) -> torch.Tensor:
     neg = torch.full((), -1.0, dtype=torch.float32, device=xyz.device)
     old = torch.zeros((b,), dtype=torch.int64, device=xyz.device)
     batch = torch.arange(b, device=xyz.device)
-    for j in range(1, k):
-        last = xyz[batch, old]  # (B, 3)
-        d = _sq_norm(xyz - last[:, None, :])
-        temp = torch.where(valid, torch.minimum(temp, d), temp)
-        old = torch.where(valid, temp, neg).argmax(dim=-1)
-        idxs[:, j] = old
+    profiling.count("fps.steps", max(k - 1, 0))
+    with profiling.span("fps"):
+        for j in range(1, k):
+            last = xyz[batch, old]  # (B, 3)
+            d = _sq_norm(xyz - last[:, None, :])
+            temp = torch.where(valid, torch.minimum(temp, d), temp)
+            old = torch.where(valid, temp, neg).argmax(dim=-1)
+            idxs[:, j] = old
     return idxs
 
 

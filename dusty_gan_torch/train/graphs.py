@@ -66,6 +66,7 @@ import torch
 
 from dusty_gan_torch.parallel import mesh
 from dusty_gan_torch.train.state import set_lr
+from dusty_gan_torch.utils import profiling
 
 WARMUP_STEPS = 2  # eager steps on a copy of the state before the first capture
 
@@ -131,43 +132,56 @@ class ChunkRunner:
             stop: bool = False) -> Dict[str, torch.Tensor]:
         """Iterations ``iters`` on the batches of ``rows`` (k, B / W) with
         ``draws`` (k lists of RoundDraws; default ``Trainer.draws(i)``) and
-        this rank's stop flag; returns the last iteration's scalars."""
+        this rank's stop flag; returns the last iteration's scalars.  The
+        tracer's span ``chunk`` holds ``chunk.draws`` (the draws),
+        ``chunk.upload`` (rows, draws and learning rates to the device) and
+        ``chunk.launch`` (the replay, or on the CPU the k steps)."""
+        with profiling.span("chunk"):
+            return self._run(iters, rows, draws, stop)
+
+    def _run(self, iters, rows, draws, stop) -> Dict[str, torch.Tensor]:
         iters = [int(i) for i in iters]
         k = len(iters)
         rows = np.asarray(rows)
         if not 0 < k <= len(self.slots) or rows.shape != (k, self.rows.shape[1]):
             raise ValueError(f"a chunk of {k} iterations with rows {rows.shape}: at most "
                              f"{len(self.slots)} iterations of {self.rows.shape[1]} rows")
-        if draws is None:
-            draws = [self.trainer.draws(i) for i in iters]
+        with profiling.span("chunk.draws"):
+            if draws is None:
+                draws = [self.trainer.draws(i) for i in iters]
         if len(draws) != k:
             raise ValueError(f"{len(draws)} iterations of draws for a chunk of {k}")
-        self.cache.upload_rows(rows, self.rows[:k])
         dst = [t for slot in self.slots[:k] for t in _leaves(slot)]
         src = [t for d in draws for t in _leaves(d)]
         if len(src) != len(dst):
             raise ValueError(f"{len(src)} draw tensors for the chunk's {len(dst)}")
-        for dtype in {t.dtype for t in dst}:  # a grouped copy takes one dtype
-            pairs = [(a, b) for a, b in zip(dst, src) if a.dtype == dtype]
-            torch._foreach_copy_([a for a, _ in pairs], [b for _, b in pairs])
-        self.stop.fill_(float(stop))
+        with profiling.span("chunk.upload"):
+            self.cache.upload_rows(rows, self.rows[:k])
+            for dtype in {t.dtype for t in dst}:  # a grouped copy takes one dtype
+                pairs = [(a, b) for a, b in zip(dst, src) if a.dtype == dtype]
+                torch._foreach_copy_([a for a, _ in pairs], [b for _, b in pairs])
+            self.stop.fill_(float(stop))
+            lrs = self.trainer.next_lrs(k)
+            if self.graphed:
+                self.lrs[:k].copy_(torch.tensor(lrs, dtype=torch.float32).pin_memory(),
+                                   non_blocking=True)
         st = self.state
-        lrs = self.trainer.next_lrs(k)
         if not self.graphed:
-            for j in range(k):
-                scalars = self._step(st, j, lrs[j])
+            with profiling.span("chunk.launch"):
+                for j in range(k):
+                    scalars = self._step(st, j, lrs[j])
             return scalars
 
-        self.lrs[:k].copy_(torch.tensor(lrs, dtype=torch.float32).pin_memory(),
-                           non_blocking=True)
         graph, out, keys = self.graphs.get(k) or self._capture(k)
-        graph.replay()
+        with profiling.span("chunk.launch"):
+            graph.replay()
+            out = out.clone()
         self.replays += 1
         self.replayed_iterations += k
         st.step += k * self.trainer.batch_size
         for opt, lr in zip((st.opt_D, st.opt_G), lrs[-1]):
             set_lr(opt, lr)  # what a checkpoint records
-        return dict(zip(keys, out.clone().unbind()))
+        return dict(zip(keys, out.unbind()))
 
     def _warm_up(self) -> None:
         twin = copy.deepcopy(self.state)

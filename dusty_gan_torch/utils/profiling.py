@@ -10,18 +10,117 @@ device events: kernels, memory copies and memsets (categories
 ``kernel``, ``gpu_memcpy``, ``gpu_memset``).  A CPU run's trace has none,
 and there the ops are the outermost ``cpu_op`` events of each thread (the
 operators the program called, without the ones nested in them).
+
+The tracer: ``span(name)`` times a stretch of the program and ``count(name,
+n)`` adds to a counter, at the places where the work happens
+(``train/graphs.py``'s chunk, ``metrics/fps.py``, the scores of
+``metrics/cov_mmd_1nna.py``).  Both are off until ``enable()``: a span is
+then one flag check and a shared do-nothing context, a count one flag
+check.  On, a span keeps (name, parent, start_ns, end_ns) in memory, by
+``time.perf_counter_ns``, its parent the innermost span open on the same
+thread; while a torch.profiler records, it also opens
+``torch.profiler.record_function(name)``, so that the span is a user
+annotation in the profiler's trace, on the clock of the device's kernels
+and copies.  ``drain()`` returns what was recorded and clears it;
+``disable()`` stops recording.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import glob
 import json
 import os
 import os.path as osp
+import threading
+import time
 from typing import Dict, List, Optional
 
+import torch
+
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+class _Record:
+    """What the tracer recorded, and whether it records."""
+
+    def __init__(self):
+        self.on = False
+        self.spans: List[tuple] = []
+        self.counters: Dict[str, int] = collections.Counter()
+        self.lock = threading.Lock()
+        self.local = threading.local()  # each thread's stack of open spans
+
+    def stack(self) -> List[str]:
+        if not hasattr(self.local, "open"):
+            self.local.open = []
+        return self.local.open
+
+
+_RECORD = _Record()
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "parent", "start", "annotation")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = _RECORD.stack()
+        self.parent = stack[-1] if stack else None
+        stack.append(self.name)
+        self.annotation = None
+        if torch.autograd._profiler_enabled():
+            self.annotation = torch.profiler.record_function(self.name)
+            self.annotation.__enter__()
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        if self.annotation is not None:
+            self.annotation.__exit__(*exc)
+        _RECORD.stack().pop()
+        with _RECORD.lock:
+            _RECORD.spans.append((self.name, self.parent, self.start, end))
+        return False
+
+
+def span(name: str):
+    """A context that records the stretch it encloses as span ``name``
+    while the tracer is on."""
+    if not _RECORD.on:
+        return _OFF
+    return _Span(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` while the tracer is on."""
+    if not _RECORD.on:
+        return
+    with _RECORD.lock:
+        _RECORD.counters[name] += int(n)
+
+
+def enable() -> None:
+    _RECORD.on = True
+
+
+def disable() -> None:
+    _RECORD.on = False
+
+
+def drain() -> Dict:
+    """{"spans": [(name, parent, start_ns, end_ns)], "counters": {name: n}}
+    recorded since the last drain, which this clears."""
+    with _RECORD.lock:
+        out = {"spans": list(_RECORD.spans), "counters": dict(_RECORD.counters)}
+        _RECORD.spans.clear()
+        _RECORD.counters.clear()
+    return out
 
 
 def start_trace(device):
