@@ -5,7 +5,7 @@
 1. Prints the card's name and power limit and the torch version, and
    builds every CUDA kernel of the port from ``dusty_gan_torch/csrc``
    (one nvcc per source, all started together); prints ptxas's registers
-   and spills for ``cd_block.cu``, ``emd.cu`` and ``nn.cu`` and fails if
+   and spills for ``cd_block.cu``, ``emd.cu``, ``nn.cu`` and ``fps.cu`` and fails if
    their kernels spill; counts ``cd_block``'s issued SASS instructions a
    distance in its inner loop (``cuobjdump``).
 2. Holds each kernel against its plain PyTorch version on the card at the
@@ -19,7 +19,9 @@
    and on the reconstruction path's own clouds), ``emd_block`` (K4, also
    bit for bit across two launches) and ``emd_pair`` (K5), both also above
    3072 points on their device-memory path, with a full-scan (1, 16384)^2
-   K5 launch against a float64 auction; and the gradients of
+   K5 launch against a float64 auction; ``furthest_point_sampling`` (K6)
+   at the synthesis protocol's (256, 16384) -> 2048 call, its indices bit
+   for bit the plain loop's; and the gradients of
    ``chamfer_distance`` and ``earth_mover_distance`` against autograd
    through the dense plain versions.
 3. Drives the synthesis path, ``dusty_gan_torch.cli.evaluate_synthesis``,
@@ -216,7 +218,7 @@ from dusty_gan_torch.data.synthetic import (  # noqa: E402
     build_synthetic_kitti, synthetic_scene_depth)
 from dusty_gan_torch.geometry.lidar import Lidar  # noqa: E402
 from dusty_gan_torch.core.dtypes import DEFAULT_POLICY, FP32_POLICY  # noqa: E402
-from dusty_gan_torch.metrics import chamfer, chamfer_cuda, cov_mmd_1nna, emd_cuda  # noqa: E402
+from dusty_gan_torch.metrics import chamfer, chamfer_cuda, cov_mmd_1nna, emd_cuda, fps  # noqa: E402
 from dusty_gan_torch.metrics.chamfer import chamfer_distance  # noqa: E402
 from dusty_gan_torch.metrics.emd import (  # noqa: E402
     earth_mover_distance, earth_mover_distance_dense)
@@ -449,6 +451,43 @@ def check_cd_block(dev) -> dict:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None}
+
+
+# FPS's (256, 16384) -> 2048 call, as the synthesis protocol makes it (K6):
+# 9 FP32 operations a point and step (3 differences, 3 products, 2 sums, one
+# minimum), as gpubench/rooflines.py::fps_least_s counts them
+FPS_SHAPE = (256, 16384, 2048)
+FPS_FLOP_PER_POINT_STEP = 9
+
+
+def check_fps(dev) -> dict:
+    """K6: the furthest point sampling kernel against the plain loop on the
+    card at the synthesis protocol's call, bit for bit, and across two
+    launches; times both."""
+    b, n, k = FPS_SHAPE
+    xyz = clouds(torch.Generator().manual_seed(6), b, n, dev)
+    got = {}
+    ms = cuda_ms(lambda: got.__setitem__(0, fps.furthest_point_sampling(xyz, k)), iters=10)
+    want = {}
+    plain_ms = cuda_ms(lambda: want.__setitem__(
+        0, fps.furthest_point_sampling_reference(xyz, k)), iters=1)
+    differ = (got[0] != want[0]).any(dim=1)
+    if bool(differ.any()):
+        raise AssertionError(f"fps: {int(differ.sum())} of {b} clouds differ from the "
+                             f"plain loop's indices")
+    if not torch.equal(got[0], fps.furthest_point_sampling(xyz, k)):
+        raise AssertionError("fps gives other indices on a second launch")
+    flops = FPS_FLOP_PER_POINT_STEP * b * n * (k - 1)
+    nbytes = 4 * 3 * b * (n + k)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOP_PER_S * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    print(f"fps ({b},{n})->{k}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+          f"{bound_ms:.3f} ms ({flops / 1e9:.1f} GFLOP fp32); indices equal the plain "
+          f"loop's, and a second launch's")
+    return {"name": "fps", "route": "cuda", "source": "dusty_gan_torch/csrc/fps.cu",
+            "replaces": None, "launches": None, "shape": [b, n, k], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None}
 
 
 def sass_loops(sass: str, function: str) -> list:
@@ -1067,7 +1106,7 @@ def prepare(work: str, num_test: int) -> dict:
 
 
 WRAPPERS = (chamfer_cuda.cd_block, chamfer_cuda.nn_dist, chamfer_cuda.nn_argmin,
-            emd_cuda.emd_block, emd_cuda.emd_pair)
+            emd_cuda.emd_block, emd_cuda.emd_pair, fps.furthest_point_sampling)
 
 
 def reset_launches() -> None:
@@ -3475,6 +3514,7 @@ def main(argv=None) -> int:
     check_ptxas("cd_block", 2)  # the one-pass and the two-pass instantiation
     check_ptxas("emd", 4)  # K4 and K5, each on both paths
     check_ptxas("nn", 12)  # 4/2/1 query points a thread, K2 and K3, counting or not
+    check_ptxas("fps", 4)  # 4/8/16 points a thread in shared memory, and device memory
     print("cd_block SASS, inner loop:", json.dumps(cd_sass_per_distance()))
 
     entries = [check_cd_block(dev)] + check_nn(dev)
@@ -3483,11 +3523,13 @@ def main(argv=None) -> int:
     device_path = check_emd_device_path(dev)
     entries[3]["device_path"], entries[4]["device_path"] = (device_path["emd_block"],
                                                             device_path["emd_pair"])
+    entries.append(check_fps(dev))
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(REPO, "build"))
     try:
         run = prepare(work, args.num_test)
         cd_launches = synthesis_path(work, run, args.num_test)
+        fps_launches = fps.furthest_point_sampling.launches  # of the same two runs
         emd_launches = emd_path(work, run, args.emd_num_test)
         emd_large_launches = emd_large_path(work, run)
         calibration_path(work, run, args.emd_num_test, dev)
@@ -3533,6 +3575,7 @@ def main(argv=None) -> int:
                               "reconstruction": nn_launches["nn_argmin"]}
     entries[3]["launches"] = emd_launches["emd_block"]
     entries[4]["launches"] = emd_launches["emd_pair"]
+    entries[5]["launches"] = fps_launches
     entries[3]["device_path"]["launches"] = emd_large_launches["emd_block"]
     entries[0]["training"] = {"launches": training["launches"],
                               **hold_blocks(training["blocks"], "training validation")}

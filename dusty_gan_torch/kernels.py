@@ -45,6 +45,11 @@ SIGNATURES = {
         "emd_pair_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _LL, _P]),
         "emd_error_string": (ctypes.c_char_p, [_I]),
     },
+    "fps": {
+        "fps_launch": (_I, [_P, _P, _P, _I, _I, _I, _P]),
+        "fps_staged_points": (_I, []),
+        "fps_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

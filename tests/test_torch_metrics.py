@@ -27,7 +27,8 @@ from dusty_gan_torch.metrics import jsd as tjsd
 from dusty_gan_torch.metrics.chamfer_cuda import cd_block, cd_block_reference
 from dusty_gan_torch.metrics.cov_mmd_1nna import (block_schedule, compute_cov_mmd_1nna,
                                                   pairwise_cd)
-from dusty_gan_torch.metrics.fps import downsample_point_clouds, furthest_point_sampling
+from dusty_gan_torch.metrics.fps import (downsample_point_clouds, furthest_point_sampling,
+                                         furthest_point_sampling_reference)
 from dusty_gan_torch.metrics.swd import TorchDraws, compute_swd
 
 from tests.torch_parity import JaxDraws
@@ -77,6 +78,47 @@ def test_fps_ties_go_to_first_index():
     want = np.asarray(jax_fps(jnp.asarray(p), 30))
     np.testing.assert_array_equal(furthest_point_sampling(torch.from_numpy(p), 30).numpy(),
                                   want)
+
+
+def test_fps_cpu_tensors_take_the_plain_loop(monkeypatch):
+    """On the CPU the wrapper returns the plain loop's indices, builds no
+    kernel and launches none."""
+    monkeypatch.setattr(kernels, "load", lambda name: pytest.fail(f"loaded {name}"))
+    p = torch.from_numpy(_clouds(4, 2, 300, 0.2))
+    got = furthest_point_sampling(p, 50)
+    np.testing.assert_array_equal(got.numpy(),
+                                  furthest_point_sampling_reference(p, 50).numpy())
+    assert furthest_point_sampling.launches == 0
+
+
+@pytest.mark.parametrize("fn", [furthest_point_sampling, furthest_point_sampling_reference])
+@pytest.mark.parametrize("shape,dtype,k,error,match", [
+    ((2, 10), torch.float32, 4, ValueError, r"\(B, N, 3\)"),
+    ((2, 10, 2), torch.float32, 4, ValueError, r"\(B, N, 3\)"),
+    ((2, 10, 3), torch.float64, 4, TypeError, "float32"),
+    ((2, 10, 3), torch.bfloat16, 4, TypeError, "float32"),
+    ((2, 10, 3), torch.float32, 0, ValueError, "k >= 1"),
+    ((2, 0, 3), torch.float32, 4, ValueError, "non-empty"),
+])
+def test_fps_rejects_bad_arguments(fn, shape, dtype, k, error, match):
+    with pytest.raises(error, match=match):
+        fn(torch.ones(shape, dtype=dtype), k)
+
+
+def test_fps_never_falls_back_off_the_cpu():
+    """A tensor that is neither on the CPU nor on CUDA raises, and does not
+    take the plain loop."""
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        furthest_point_sampling(torch.empty((2, 10, 3), device="meta"), 4)
+
+
+def test_fps_library_is_declared():
+    assert set(kernels.SIGNATURES["fps"]) == {"fps_launch", "fps_staged_points",
+                                             "fps_error_string"}
+    assert kernels.library_path("fps").name.startswith("libfps-")
+    src = (kernels.CSRC / "fps.cu").read_text()
+    for fn in kernels.SIGNATURES["fps"]:
+        assert f" {fn}(" in src, fn
 
 
 def test_jsd_exact_counts():

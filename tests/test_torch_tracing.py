@@ -12,7 +12,7 @@ from torch.profiler import ProfilerActivity, profile
 from dusty_gan_torch.config import compose
 from dusty_gan_torch.data.synthetic import build_synthetic_kitti
 from dusty_gan_torch.metrics.cov_mmd_1nna import compute_cov_mmd_1nna
-from dusty_gan_torch.metrics.fps import downsample_point_clouds
+from dusty_gan_torch.metrics.fps import downsample_point_clouds, furthest_point_sampling
 from dusty_gan_torch.train.trainer import Trainer
 from dusty_gan_torch.utils import profiling
 
@@ -119,6 +119,17 @@ def test_fps_adds_its_steps_once_a_call():
     rec = profiling.drain()
     assert rec["counters"] == {"fps.steps": 7 + 4}
     assert _names(rec) == [("fps", None), ("fps", None)]
+
+
+def test_fps_counts_no_kernel_clouds_on_the_cpu():
+    """``fps.kernel_clouds`` counts the kernel's clouds: the plain loop on
+    the CPU adds none, only its steps."""
+    profiling.enable()
+    furthest_point_sampling(torch.randn(4, 30, 3), 6)
+    rec = profiling.drain()
+    assert "fps.kernel_clouds" not in rec["counters"]
+    assert rec["counters"] == {"fps.steps": 5}
+    assert furthest_point_sampling.launches == 0
 
 
 def test_the_scores_are_one_span_a_metric():
