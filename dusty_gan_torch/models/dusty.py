@@ -10,7 +10,8 @@ NCHW.
 Composite: ``depth = mask * depth + (1 - mask) * drop_const``.  Noise is
 either a fixed field (``fixed_noise``) or drawn from ``generator``.
 ``compose_layer`` / ``compose_alpha`` go to the backbone (multi-code
-composition, ``dcgan_eqlr.Generator``).
+composition, ``dcgan_eqlr.Generator``), and so do any further keywords
+(the StyleGAN2 backbone's ``style`` draws and ``ws``).
 ``mask`` is returned as the concatenation [pixel, image] for DUSty2.
 """
 
@@ -76,8 +77,9 @@ class DUSty1(_Masker):
     def forward(self, latent, compute_dtype=None, train: bool = True,
                 threshold: float = 0.5, fixed_noise=None,
                 generator: Optional[torch.Generator] = None,
-                compose_layer: Optional[int] = None, compose_alpha=None):
-        out = dict(self.backbone(latent, compute_dtype, compose_layer, compose_alpha))
+                compose_layer: Optional[int] = None, compose_alpha=None, **backbone_kw):
+        out = dict(self.backbone(latent, compute_dtype, compose_layer, compose_alpha,
+                                 **backbone_kw))
         depth = out["depth"]
         mask = self.gumbel(out["confidence"].float(), threshold, fixed_noise,
                            generator)
@@ -97,10 +99,11 @@ class DUSty2(_Masker):
     def forward(self, latent, compute_dtype=None, train: bool = True,
                 threshold: float = 0.5, fixed_noise=None,
                 generator: Optional[torch.Generator] = None,
-                compose_layer: Optional[int] = None, compose_alpha=None):
+                compose_layer: Optional[int] = None, compose_alpha=None, **backbone_kw):
         """``fixed_noise``: None or {"pixel": (1|B,1,H,W), "image":
         (1|B,1,1,1)}."""
-        out = dict(self.backbone(latent, compute_dtype, compose_layer, compose_alpha))
+        out = dict(self.backbone(latent, compute_dtype, compose_layer, compose_alpha,
+                                 **backbone_kw))
         depth = out["depth"]
         logits = out["confidence"].float()  # (B, 2, H, W)
         fixed_noise = fixed_noise or {}

@@ -5,7 +5,8 @@ Seven adversarial objectives for D and G (nsgan, wgan, lsgan, hinge and the
 relativistic ragan, rahinge, ralsgan), computed in float32; the R1 and
 one-centred gradient penalties as ``torch.autograd.grad(..., create_graph=
 True)`` on float32 inputs, so the outer backward differentiates through
-them; StyleGAN2's path-length penalty with its EMA baseline; and
+them; StyleGAN2's path-length penalty with its EMA baseline, with respect to
+z or to a StyleGAN2 generator's ws; and
 ``masked_loss``.
 
 The relativistic modes compare each logit with the other side's mean
@@ -108,19 +109,29 @@ def path_length_noise(shape, generator: Optional[torch.Generator] = None,
     return noise / torch.sqrt(torch.tensor(float(shape[1] * shape[2] * shape[3])))
 
 
-def path_length_penalty(g_depth_apply: Callable, z: torch.Tensor, noise: torch.Tensor,
+def path_lengths(grads: torch.Tensor) -> torch.Tensor:
+    """Each row's path length from its latent gradient: ``sqrt(sum_k g^2)``
+    for z (B, I), ``sqrt(mean_i sum_k g^2)`` for ws (B, num_ws, w_dim)."""
+    sq = (grads.float() ** 2).sum(dim=-1)
+    return torch.sqrt(sq.mean(dim=1) if sq.dim() > 1 else sq)
+
+
+def path_length_penalty(g_depth_apply: Callable, latent: torch.Tensor, noise: torch.Tensor,
                         pl_ema: torch.Tensor, decay: float = 0.01,
                         batch_mean: Optional[Callable] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """StyleGAN2 path-length regularisation.  ``g_depth_apply`` maps latents
     to depth images (B, C, H, W); ``noise`` is ``path_length_noise`` of that
-    shape.  Returns (penalty, new pl_ema), pl_ema lerped toward the batch's
-    mean path length by ``decay`` and carrying no gradient.  ``batch_mean``
-    maps this batch's mean to the global batch's (over ranks)."""
-    z = z.detach().float().requires_grad_(True)
-    x = g_depth_apply(z)
-    (grads,) = torch.autograd.grad((x * noise.to(x.dtype)).sum(), z, create_graph=True)
-    pl_lengths = torch.sqrt((grads.float() ** 2).sum(dim=-1))
+    shape.  The gradient is taken with respect to ``latent`` as it is given,
+    which must require it: z detached from everything (the DCGAN form), or a
+    StyleGAN2 generator's mapped ws (B, num_ws, w_dim), kept in the mapping's
+    graph as NVlabs' ``StyleGAN2Loss`` keeps them (``path_lengths``).
+    Returns (penalty, new pl_ema), pl_ema lerped toward the batch's mean path
+    length by ``decay`` and carrying no gradient.  ``batch_mean`` maps this
+    batch's mean to the global batch's (over ranks)."""
+    x = g_depth_apply(latent)
+    (grads,) = torch.autograd.grad((x * noise.to(x.dtype)).sum(), latent, create_graph=True)
+    pl_lengths = path_lengths(grads)
     mean = pl_lengths.mean().detach()
     if batch_mean is not None:
         mean = batch_mean(mean)

@@ -13,7 +13,14 @@ Semantics kept from the JAX package (and its reference):
 * the relativistic modes also score augmented reals in the G phase;
 * A rounds of batch/A, each round's loss scaled by 1/A, one update per
   step, the logged scalars averaged over rounds;
-* EMA after both updates.
+* EMA after both updates;
+* a StyleGAN2 backbone (``models/stylegan2.py``) takes, besides z, the
+  round's ``StyleDraws`` (``RoundDraws.style``: the mixing latent and
+  cutoff, drawn with probability ``mix_prob`` a round as NVlabs'
+  ``run_G`` draws them, else the cutoff at num_ws, and every noise
+  layer's field), the same in both phases; its path length is taken with
+  respect to the mapped ws, not z (``pl_style``: the PL rows' own).  A
+  backbone without a w-space refuses a ``mix_prob`` above 0.
 
 Every random draw of one iteration is taken up front into ``RoundDraws``
 (``sample_draws``, from one ``torch.Generator``), so the step itself is a
@@ -52,7 +59,7 @@ import torch
 
 from dusty_gan_torch.core.dtypes import DEFAULT_POLICY, Policy
 from dusty_gan_torch.geometry.lidar import sigmoid_to_tanh
-from dusty_gan_torch.models import losses
+from dusty_gan_torch.models import losses, stylegan2
 from dusty_gan_torch.models.dusty import DUSty1, DUSty2
 from dusty_gan_torch.ops.diff_augment import DEFAULT_POLICY as AUGMENT_POLICY
 from dusty_gan_torch.ops.diff_augment import diff_augment, draw_augment
@@ -82,13 +89,45 @@ def fetch_reals(batch: Dict[str, torch.Tensor], lidar, drop_const: float):
     return mask * inv + (1.0 - mask) * drop_const, mask
 
 
-def apply_g(G, z, noise, compute_dtype):
+def style_backbone(G):
+    """G's backbone (bare or under a masker) if it has a w-space, that is
+    ``num_ws`` style inputs (``models/stylegan2.py``), else None."""
+    net = G.backbone if isinstance(G, (DUSty1, DUSty2)) else G
+    return net if getattr(net, "num_ws", None) else None
+
+
+def apply_g(G, z, noise, compute_dtype, style=None, ws=None):
     """One calling convention for plain and DUSty generators in training
     mode; ``noise`` is the Gumbel noise a DUSty generator takes as
-    ``fixed_noise``."""
+    ``fixed_noise``; ``style`` (``StyleDraws``) and ``ws`` (in z's place)
+    go to a StyleGAN2 backbone."""
+    kw = {} if style is None and ws is None else {"style": style, "ws": ws}
     if isinstance(G, (DUSty1, DUSty2)):
-        return G(z, compute_dtype, train=True, fixed_noise=noise)
-    return G(z, compute_dtype)
+        return G(z, compute_dtype, train=True, fixed_noise=noise, **kw)
+    return G(z, compute_dtype, **kw)
+
+
+def draw_style(G, b: int, mix_prob: float, generator, device):
+    """A StyleGAN2 backbone's draws for a batch of ``b``
+    (``stylegan2.StyleDraws``), None for other generators: with
+    ``mix_prob`` > 0 a second latent and a cutoff, uniform in [1, num_ws)
+    with probability ``mix_prob`` and num_ws otherwise, drawn on the device
+    (the host never reads it); then each noise layer's N(0, 1) field."""
+    net = style_backbone(G)
+    if net is None:
+        if mix_prob > 0.0:
+            raise ValueError(f"solver.mix_prob={mix_prob}: style mixing needs a generator "
+                             "with a w-space (the stylegan2 backbone)")
+        return None
+    z_mix = cutoff = None
+    if mix_prob > 0.0:
+        z_mix = torch.randn((b, net.in_ch), generator=generator, device=device)
+        c = torch.randint(1, net.num_ws, (), generator=generator, device=device)
+        u = torch.rand((), generator=generator, device=device)
+        cutoff = torch.where(u < mix_prob, c, torch.full_like(c, net.num_ws))
+    noise = [torch.randn((b, 1) + tuple(s), generator=generator, device=device)
+             for s in net.noise_shapes]
+    return stylegan2.StyleDraws(z_mix=z_mix, cutoff=cutoff, noise=noise)
 
 
 def draw_gumbel_noise(G, b: int, shape, generator, device):
@@ -115,13 +154,17 @@ class RoundDraws:
     aug_g_real: Optional[list] = None  # relativistic modes only
     # (z (b_pl, in_ch), image noise (b_pl, 1, H, W), Gumbel noise) with PL on
     pl: Optional[Tuple[torch.Tensor, torch.Tensor, object]] = None
+    style: Optional[stylegan2.StyleDraws] = None  # draw_style(G, b, ...)
+    pl_style: Optional[stylegan2.StyleDraws] = None  # the PL rows' own
 
 
 def sample_draws(generator: torch.Generator, device, G, *, rounds: int, b: int,
                  in_ch: int, shape, augment_policy: Sequence[str] = AUGMENT_POLICY,
-                 relativistic: bool = False, use_pl: bool = False) -> List[RoundDraws]:
+                 relativistic: bool = False, use_pl: bool = False,
+                 mix_prob: float = 0.0) -> List[RoundDraws]:
     """Every draw of one iteration from ``generator`` (on ``device``), in
-    a fixed order, round by round."""
+    a fixed order, round by round.  A generator without a w-space draws
+    nothing more than before the StyleGAN2 backbone came."""
     h, w = shape
     aug = lambda: draw_augment(augment_policy, b, h, w, generator, device)  # noqa: E731
     out = []
@@ -129,7 +172,8 @@ def sample_draws(generator: torch.Generator, device, G, *, rounds: int, b: int,
         d = RoundDraws(
             z=torch.randn((b, in_ch), generator=generator, device=device),
             gumbel=draw_gumbel_noise(G, b, shape, generator, device),
-            aug_d_real=aug(), aug_d_fake=aug(), aug_g_fake=aug())
+            aug_d_real=aug(), aug_d_fake=aug(), aug_g_fake=aug(),
+            style=draw_style(G, b, mix_prob, generator, device))
         if relativistic:
             d.aug_g_real = aug()
         if use_pl:
@@ -137,17 +181,23 @@ def sample_draws(generator: torch.Generator, device, G, *, rounds: int, b: int,
             d.pl = (torch.randn((b_pl, in_ch), generator=generator, device=device),
                     losses.path_length_noise((b_pl, 1, h, w), generator, device),
                     draw_gumbel_noise(G, b_pl, shape, generator, device))
+            d.pl_style = draw_style(G, b_pl, mix_prob, generator, device)
         out.append(d)
     return out
 
 
 def _map_rows(fn, *trees):
     """``fn`` over the tensors of equally shaped draw trees (dicts, lists,
-    tuples, tensors; anything else, such as an op name or None, is taken
-    from the first tree)."""
+    tuples, dataclasses, tensors; a 0-d tensor, such as a mixing cutoff,
+    and anything else, such as an op name or None, is taken from the
+    first tree)."""
     t = trees[0]
     if isinstance(t, torch.Tensor):
-        return fn(*trees)
+        return fn(*trees) if t.dim() else t
+    if dataclasses.is_dataclass(t):
+        return dataclasses.replace(t, **{f.name: _map_rows(fn, *(getattr(x, f.name)
+                                                                 for x in trees))
+                                         for f in dataclasses.fields(t)})
     if isinstance(t, dict):
         return {k: _map_rows(fn, *(x[k] for x in trees)) for k in t}
     if isinstance(t, (list, tuple)):
@@ -231,7 +281,7 @@ class TrainStep:
         return loss, scalars
 
     def _g_round(self, G, D, x_real, d: RoundDraws, pl_ema):
-        synth = apply_g(G, d.z, d.gumbel, self.cdt)
+        synth = apply_g(G, d.z, d.gumbel, self.cdt, d.style)
         y_fake = self._apply_d(D, diff_augment(synth["depth"], d.aug_g_fake))
         y_real = None
         if self.relativistic:
@@ -240,15 +290,27 @@ class TrainStep:
         loss = self.w_gan * adv
         scalars = {"loss/G/adversarial": adv}
         if self.use_pl:
-            z_pl, noise, gumbel_pl = d.pl
-            g_depth = lambda zz: apply_g(G, zz, gumbel_pl, self.cdt)["depth"]  # noqa: E731
-            pl_pen, pl_ema = losses.path_length_penalty(
-                g_depth, z_pl, noise, pl_ema, PL_DECAY,
-                batch_mean=_rank_mean if self.distributed else None)
+            pl_pen, pl_ema = self._path_length(G, d, pl_ema)
             loss = loss + self.w_pl * pl_pen
             scalars["loss/G/path_length"] = pl_pen
             scalars["loss/G/path_length/baseline"] = pl_ema
         return loss, scalars, pl_ema
+
+    def _path_length(self, G, d: RoundDraws, pl_ema):
+        """(penalty, new baseline) on the round's PL rows: with respect to
+        z, or for a generator with a w-space to the mapped ws, which keep
+        the mapping's graph."""
+        z_pl, noise, gumbel_pl = d.pl
+        mean = _rank_mean if self.distributed else None
+        net = style_backbone(G)
+        if net is None:
+            g_depth = lambda zz: apply_g(G, zz, gumbel_pl, self.cdt)["depth"]  # noqa: E731
+            return losses.path_length_penalty(g_depth, z_pl.detach().float().requires_grad_(True),
+                                              noise, pl_ema, PL_DECAY, batch_mean=mean)
+        g_depth = lambda w: apply_g(G, None, gumbel_pl, self.cdt,  # noqa: E731
+                                    d.pl_style, ws=w)["depth"]
+        return losses.path_length_penalty(g_depth, net.ws(z_pl, d.pl_style), noise, pl_ema,
+                                          PL_DECAY, batch_mean=mean)
 
     def _backward(self, loss):
         (loss / self.A if self.A > 1 else loss).backward()
@@ -271,7 +333,7 @@ class TrainStep:
         x_real, _ = fetch_reals(batch, self.lidar, self.drop_const)
         xs_real = x_real.reshape(self.A, -1, *x_real.shape[1:])
         with torch.no_grad():
-            xs_fake = [apply_g(G, d.z, d.gumbel, self.cdt)["depth"] for d in draws]
+            xs_fake = [apply_g(G, d.z, d.gumbel, self.cdt, d.style)["depth"] for d in draws]
 
         state.opt_D.zero_grad(set_to_none=True)
         d_scalars = []

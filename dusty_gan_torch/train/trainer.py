@@ -7,10 +7,11 @@ from one (the port's, or the JAX package's ``.pth`` export).
 
 Randomness: the weights are initialised from ``seed``; iteration i draws
 everything it needs (latents, Gumbel noise, DiffAugment, path-length
-noise) from one generator seeded ``derived_seed(seed, TRAIN_STREAM, i)``,
-as the JAX step folds i into its root key, so a resumed run replays the
-uninterrupted run's draws; validation draws its latents from a generator
-keyed on the image step.
+noise; a StyleGAN2 generator's mixing latents and cutoffs, at
+``solver.mix_prob``, and noise fields) from one generator seeded
+``derived_seed(seed, TRAIN_STREAM, i)``, as the JAX step folds i into its
+root key, so a resumed run replays the uninterrupted run's draws;
+validation draws its latents from a generator keyed on the image step.
 
 Image logging (``generate``): G or G_ema in eval mode on ``fixed_latent``
 (min(batch, 16) latents drawn once from the run's seed), with Gumbel pixel
@@ -189,6 +190,7 @@ class Trainer:
         self.device_cache = (DeviceDatasetCache(self.loader, device, keys=("depth",))
                              if cfg.get("cache_device") else None)
 
+        self.mix_prob = float(solver.get("mix_prob") or 0.0)
         self.augment_policy = tuple(solver.augment or [])
         self.train_step = TrainStep(
             self.lidar, gan_mode=str(solver.gan_mode),
@@ -272,7 +274,8 @@ class Trainer:
             g, self.device, self.state.G, rounds=self.num_accumulation,
             b=self.batch_size // self.num_accumulation, in_ch=self.in_ch, shape=self.shape,
             augment_policy=self.augment_policy,
-            relativistic=self.train_step.relativistic, use_pl=self.train_step.use_pl)
+            relativistic=self.train_step.relativistic, use_pl=self.train_step.use_pl,
+            mix_prob=self.mix_prob)
         return local_draws(draws, self.rank, self.world) if self.world > 1 else draws
 
     def next_lrs(self, k: int = 1) -> list:

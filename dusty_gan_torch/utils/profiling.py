@@ -105,6 +105,10 @@ def count(name: str, n: int = 1) -> None:
         _RECORD.counters[name] += int(n)
 
 
+def enabled() -> bool:
+    return _RECORD.on
+
+
 def enable() -> None:
     _RECORD.on = True
 

@@ -128,7 +128,7 @@ def test_path_length_penalty_matches_jax(arch):
     tgum = {k: nchw(v) for k, v in gum.items()}
     fn = (lambda zz: port(zz, train=True, fixed_noise=tgum)["depth"]) if masked else (
         lambda zz: port(zz)["depth"])
-    pen, ema = tl.path_length_penalty(fn, torch.from_numpy(z), nchw(noise),
+    pen, ema = tl.path_length_penalty(fn, torch.from_numpy(z).requires_grad_(True), nchw(noise),
                                       torch.tensor(0.3), 0.01)
     pen.backward()
     np.testing.assert_allclose(pen.item(), float(want_pen), **TOL)
