@@ -5,8 +5,12 @@ Seven adversarial objectives for D and G (nsgan, wgan, lsgan, hinge and the
 relativistic ragan, rahinge, ralsgan), computed in float32; the R1 and
 one-centred gradient penalties as ``torch.autograd.grad(..., create_graph=
 True)`` on float32 inputs, so the outer backward differentiates through
-them; StyleGAN2's path-length penalty with its EMA baseline, with respect to
-z or to a StyleGAN2 generator's ws; and
+them (the forward inside ``ops/conv.py``'s ``double_backward``, so that
+the outer pass forms the convolutions' second-order weight terms on cuDNN's
+wgrad; the inner pass inside its ``no_weight_gradients``: it wants the
+input's gradient alone); StyleGAN2's path-length penalty with its EMA
+baseline, with respect to z or to a StyleGAN2 generator's ws (its forward
+and inner pass likewise); and
 ``masked_loss``.
 
 The relativistic modes compare each logit with the other side's mean
@@ -23,6 +27,7 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from dusty_gan_torch.ops import conv
 from dusty_gan_torch.parallel import mesh
 
 GAN_MODES = ("nsgan", "wgan", "lsgan", "hinge", "ragan", "rahinge", "ralsgan")
@@ -81,8 +86,10 @@ def _input_grad(d_apply: Callable, x: torch.Tensor):
     """(logits, d sum(logits) / d x) with the graph kept for an outer
     backward; ``x`` is taken as float32 and detached."""
     x = x.detach().float().requires_grad_(True)
-    logits = d_apply(x)
-    (grads,) = torch.autograd.grad(logits.sum(), x, create_graph=True)
+    with conv.double_backward():
+        logits = d_apply(x)
+    with conv.no_weight_gradients():
+        (grads,) = torch.autograd.grad(logits.sum(), x, create_graph=True)
     return logits, grads.float()
 
 
@@ -129,8 +136,11 @@ def path_length_penalty(g_depth_apply: Callable, latent: torch.Tensor, noise: to
     Returns (penalty, new pl_ema), pl_ema lerped toward the batch's mean path
     length by ``decay`` and carrying no gradient.  ``batch_mean`` maps this
     batch's mean to the global batch's (over ranks)."""
-    x = g_depth_apply(latent)
-    (grads,) = torch.autograd.grad((x * noise.to(x.dtype)).sum(), latent, create_graph=True)
+    with conv.double_backward():
+        x = g_depth_apply(latent)
+    with conv.no_weight_gradients():
+        (grads,) = torch.autograd.grad((x * noise.to(x.dtype)).sum(), latent,
+                                       create_graph=True)
     pl_lengths = path_lengths(grads)
     mean = pl_lengths.mean().detach()
     if batch_mean is not None:

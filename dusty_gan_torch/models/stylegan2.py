@@ -38,8 +38,9 @@ conv, no bias], ``(x + skip) / sqrt(2)``; then minibatch stddev (groups
 of min(``mbstd_group``, B), one channel), a 3x3 conv C + 1 -> C, a linear
 layer C*h*w -> ``fc_dim`` with lrelu, and one to the logit.
 
-Precision (``compute_dtype``): the convolutions run in it (bf16 under
-amp); the mapping, the styles, the demodulation coefficients, the skip
+Precision (``compute_dtype``): the convolutions (``ops/conv.py``'s, whose
+double backward forms its weight terms on cuDNN's wgrad) run in it (bf16
+under amp); the mapping, the styles, the demodulation coefficients, the skip
 image, D's FromRGB, its minibatch stddev and its two linear layers run in
 float32.
 
@@ -56,9 +57,9 @@ import math
 from typing import Dict, List, Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from dusty_gan_torch.ops import conv
 from dusty_gan_torch.ops.activation import fused_leaky_relu
 from dusty_gan_torch.ops.modulated import modulated_conv2d
 from dusty_gan_torch.ops.upfirdn import downsample2d, setup_filter, upfirdn2d, upsample2d
@@ -111,12 +112,12 @@ class EqualConv2d(nn.Module):
         w = (self.weight * self.weight_gain).to(dtype)
         k = self.weight.shape[-1]
         if self.down and k == 1:
-            x = F.conv2d(downsample2d(x, self.resample_filter), w)
+            x = conv.conv2d(downsample2d(x, self.resample_filter), w)
         elif self.down:
             x = upfirdn2d(x, self.resample_filter, padding=(2, 2, 2, 2))
-            x = F.conv2d(x, w, stride=2)
+            x = conv.conv2d(x, w, stride=2)
         else:
-            x = F.conv2d(x, w, padding=k // 2)
+            x = conv.conv2d(x, w, padding=k // 2)
         return x
 
 

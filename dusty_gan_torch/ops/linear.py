@@ -10,18 +10,19 @@ with ``fan_in = weight[0].numel()`` in the torch layout
   reference's ConvT fan-in quirk, kept (the generator).
 
 ``EqualLR`` wraps the conv as ``.module`` so the state-dict keys are the
-reference's ``<...>.module.weight`` / ``.module.bias``.  The forward runs a
-plain ``F.conv2d`` / ``F.conv_transpose2d`` in ``compute_dtype`` (None = the
-input's dtype); a bias is added after the conv in the output dtype.
+reference's ``<...>.module.weight`` / ``.module.bias``.  The forward runs
+``ops/conv.py``'s ``conv2d`` / ``conv_transpose2d`` (the plain ``F.`` op
+outside a penalty's forward) in ``compute_dtype`` (None = the input's
+dtype); a bias is added after the conv in the output dtype.
 """
 
 from __future__ import annotations
 
 import math
 
-import torch
-import torch.nn.functional as F
 from torch import nn
+
+from dusty_gan_torch.ops import conv
 
 
 class EqualLR(nn.Module):
@@ -43,9 +44,9 @@ class EqualLR(nn.Module):
         dtype = compute_dtype or x.dtype
         w = (m.weight * self.scale).to(dtype)
         if isinstance(m, nn.ConvTranspose2d):
-            y = F.conv_transpose2d(x.to(dtype), w, None, m.stride, m.padding)
+            y = conv.conv_transpose2d(x.to(dtype), w, m.stride, m.padding)
         else:
-            y = F.conv2d(x.to(dtype), w, None, m.stride, m.padding)
+            y = conv.conv2d(x.to(dtype), w, m.stride, m.padding)
         if m.bias is not None:
             y = y + m.bias.to(y.dtype).view(1, -1, 1, 1)
         return y

@@ -22,6 +22,9 @@ wide), then the FIR blur ``upfirdn2d(padding 1, gain 4)`` with the 1-D
 taps ``resample_filter``, as NVlabs' ``conv2d_resample`` takes its fast
 path for up = 2.
 
+Both convolutions are ``ops/conv.py``'s, so that the path-length
+penalty's outer pass forms their weight terms on cuDNN's wgrad.
+
 Each call adds 1 to the tracer's counter ``g.modconv``.
 """
 
@@ -30,8 +33,8 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 
+from dusty_gan_torch.ops import conv
 from dusty_gan_torch.ops.upfirdn import upfirdn2d
 from dusty_gan_torch.utils import profiling
 
@@ -54,10 +57,10 @@ def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor, styles: torch.Tensor
     x = x.to(dtype) * styles.to(dtype)[:, :, None, None]
     w = weight.to(dtype)
     if up:
-        x = F.conv_transpose2d(x, w.transpose(0, 1), stride=2)
+        x = conv.conv_transpose2d(x, w.transpose(0, 1), stride=2)
         x = upfirdn2d(x, resample_filter, padding=(1, 1, 1, 1), gain=4.0)
     else:
-        x = F.conv2d(x, w, padding=weight.shape[-1] // 2)
+        x = conv.conv2d(x, w, padding=weight.shape[-1] // 2)
     if demodulate:
         x = x * demodulation(weight, styles).to(dtype)[:, :, None, None]
     return x
