@@ -53,7 +53,7 @@ from dusty_gan_torch.geometry.lidar import tanh_to_sigmoid
 from dusty_gan_torch.geometry.normals import euler_angles_to_rotation_matrix, xyz_to_normal
 from dusty_gan_torch.geometry.render import render_point_clouds
 from dusty_gan_torch.metrics.chamfer import chamfer_distance
-from dusty_gan_torch.models.dusty import DUSty1, DUSty2
+from dusty_gan_torch.models.dusty import generate, has_masker
 from dusty_gan_torch.models.losses import masked_loss
 from dusty_gan_torch.utils import corruption
 from dusty_gan_torch.utils.inversion import (NoiseFn, lerp, make_inversion_loop,
@@ -201,7 +201,7 @@ def inversion(args, draws: Draws = None):
     device = resolve_device(args.device)
     cfg, G, lidar, fixed_noise = setup(args.model_path, args.config_path, device)
     gen = make_eval_generator(G, fixed_noise)
-    is_dusty = "dusty" in str(cfg.model.gen.arch)
+    is_dusty = has_masker(G)
     draws = Draws(args.seed) if draws is None else draws
     in_ch = int(cfg.model.gen.in_ch)
 
@@ -216,10 +216,9 @@ def inversion(args, draws: Draws = None):
 
     def apply_composed(z, alpha):
         """The float32 generator blending N codes into one sample."""
-        kw = dict(compute_dtype=None, compose_layer=args.compose_layer, compose_alpha=alpha)
-        if isinstance(G, (DUSty1, DUSty2)):
-            kw.update(train=False, fixed_noise=fixed_noise)
-        return {k: v.permute(0, 2, 3, 1) for k, v in G(z, **kw).items()}
+        out = generate(G, z, train=False, noise=fixed_noise,
+                       compose_layer=args.compose_layer, compose_alpha=alpha)
+        return {k: v.permute(0, 2, 3, 1) for k, v in out.items()}
 
     def loss_fn(latent):
         if args.num_code > 1:

@@ -52,6 +52,7 @@ from dusty_gan_torch.data.loader import Loader
 from dusty_gan_torch.geometry.lidar import tanh_to_sigmoid
 from dusty_gan_torch.metrics.chamfer import compute_cd
 from dusty_gan_torch.metrics.depth import compute_depth_accuracy, compute_depth_error
+from dusty_gan_torch.models.dusty import has_masker
 from dusty_gan_torch.models.losses import masked_loss
 from dusty_gan_torch.parallel import mesh
 from dusty_gan_torch.utils.inversion import NoiseFn, make_inversion_loop, project_sphere
@@ -195,7 +196,7 @@ def _evaluate(args, device, stats: Optional[Dict[str, float]]) -> Dict[str, list
 
     cfg, G, lidar, fixed_noise = setup(args.model_path, args.config_path, device)
     gen = make_eval_generator(G, fixed_noise)
-    is_dusty = "dusty" in str(cfg.model.gen.arch)
+    is_dusty = has_masker(G)
     in_ch = int(cfg.model.gen.in_ch)
     loader = Loader(define_dataset(cfg.dataset, phase="test"), args.batch_size)
 

@@ -31,6 +31,7 @@ from glob import glob
 
 import numpy as np
 
+from dusty_gan_torch import kernels
 from dusty_gan_torch.data import native as native_lib
 from dusty_gan_torch.utils.video import write_png
 
@@ -213,7 +214,7 @@ def process_kitti_root(root_dir: str, H: int = 64, W: int = 2048, verbose: bool 
     mp_ctx = multiprocessing.get_context("spawn")
     if n_jobs > 1 and len(tasks) > 1:
         if native:
-            native_lib.build()  # once, before the workers load it
+            kernels.build(["rangeproj"])  # once, before the workers load it
         with ProcessPoolExecutor(max_workers=n_jobs, mp_context=mp_ctx) as pool:
             for done, _ in enumerate(pool.map(_process_one, tasks, chunksize=8), 1):
                 if verbose and done % 1000 == 0:

@@ -8,11 +8,16 @@ NCHW.
   the image mask is ``logit > 0``.
 
 Composite: ``depth = mask * depth + (1 - mask) * drop_const``.  Noise is
-either a fixed field (``fixed_noise``) or drawn from ``generator``.
-``compose_layer`` / ``compose_alpha`` go to the backbone (multi-code
-composition, ``dcgan_eqlr.Generator``), and so do any further keywords
-(the StyleGAN2 backbone's ``style`` draws and ``ws``).
+either a fixed field (``fixed_noise``, in ``noise_fields``' form) or drawn
+from ``generator``.  ``compose_layer`` / ``compose_alpha`` go to the
+backbone (multi-code composition, ``dcgan_eqlr.Generator``), and so do any
+further keywords (the StyleGAN2 backbone's ``style`` draws and ``ws``).
 ``mask`` is returned as the concatenation [pixel, image] for DUSty2.
+
+The module-level ``has_masker``, ``noise_fields``, ``generate`` and
+``w_space`` are the one place outside the maskers that tells a bare
+backbone from a masked generator: training, evaluation and the CLIs call
+any generator through them.
 """
 
 from __future__ import annotations
@@ -38,14 +43,18 @@ class GumbelSigmoid(nn.Module):
         if tau is None:
             self.weight = nn.Parameter(torch.zeros(()))
 
+    def draw(self, generator: Optional[torch.Generator], b: int, shape, device=None):
+        """The logistic field this module consumes for a batch of ``b``
+        (H, W) ``shape`` images: (b, 1, H, W) pixelwise, else (b, 1, 1, 1)."""
+        return logistic_noise(generator, b, shape, self.pixelwise, self.eps, device=device)
+
     def forward(self, logits, threshold: float = 0.5, noise=None,
                 generator: Optional[torch.Generator] = None):
         """``noise``: a fixed field; when None it is drawn from
         ``generator`` (or the default generator)."""
         if noise is None:
             b, _, h, w = logits.shape
-            noise = logistic_noise(generator, b, (h, w), self.pixelwise,
-                                   self.eps, device=logits.device)
+            noise = self.draw(generator, b, (h, w), logits.device)
         inverse_tau = None
         if self.tau is None:
             inverse_tau = F.softplus(self.weight) + 1.0 / self.tau_max
@@ -74,6 +83,10 @@ class DUSty1(_Masker):
         super().__init__(backbone, drop_const)
         self.gumbel = GumbelSigmoid(tau=tau, hard=True, pixelwise=True)
 
+    def noise_fields(self, generator, b: int, shape, device=None):
+        """The (b, 1, H, W) field ``forward`` takes as ``fixed_noise``."""
+        return self.gumbel.draw(generator, b, shape, device)
+
     def forward(self, latent, compute_dtype=None, train: bool = True,
                 threshold: float = 0.5, fixed_noise=None,
                 generator: Optional[torch.Generator] = None,
@@ -96,6 +109,12 @@ class DUSty2(_Masker):
         self.gumbel_pixel = GumbelSigmoid(tau=tau, hard=True, pixelwise=True)
         self.gumbel_image = GumbelSigmoid(tau=tau, hard=True, pixelwise=False)
 
+    def noise_fields(self, generator, b: int, shape, device=None):
+        """{"pixel": (b, 1, H, W), "image": (b, 1, 1, 1)}, drawn in that
+        order, as ``forward`` takes them as ``fixed_noise``."""
+        return {"pixel": self.gumbel_pixel.draw(generator, b, shape, device),
+                "image": self.gumbel_image.draw(generator, b, shape, device)}
+
     def forward(self, latent, compute_dtype=None, train: bool = True,
                 threshold: float = 0.5, fixed_noise=None,
                 generator: Optional[torch.Generator] = None,
@@ -116,3 +135,38 @@ class DUSty2(_Masker):
             mask_image = (logits[:, 1:] > 0.0).float()
         out["mask"] = torch.cat([mask_pixel, mask_image], dim=1)
         return self._composite(out, depth, mask_pixel * mask_image)
+
+
+def has_masker(G: nn.Module) -> bool:
+    """Whether ``G`` is a backbone under a DUSty masker (its output then
+    holds ``depth_orig`` and ``mask``)."""
+    return isinstance(G, _Masker)
+
+
+def noise_fields(G: nn.Module, generator: Optional[torch.Generator], b: int, shape,
+                 device=None):
+    """The Gumbel noise ``G`` consumes for a batch of ``b``, in the form
+    ``generate`` takes as ``noise``: None for a bare backbone."""
+    return G.noise_fields(generator, b, shape, device) if has_masker(G) else None
+
+
+def generate(G: nn.Module, z, compute_dtype=None, *, train: bool, threshold: float = 0.5,
+             noise=None, generator: Optional[torch.Generator] = None, **backbone_kw):
+    """``G``'s output dict for latents ``z``.  The masker's arguments
+    (``train``, ``threshold``, ``noise`` as ``fixed_noise``, ``generator``)
+    reach a masked ``G`` only; a bare backbone takes ``z``,
+    ``compute_dtype`` and ``backbone_kw``.  A keyword left at None is not
+    passed, so a backbone without it (DCGAN has no ``style``) accepts the
+    call."""
+    kw = {k: v for k, v in backbone_kw.items() if v is not None}
+    if has_masker(G):
+        return G(z, compute_dtype, train=train, threshold=threshold, fixed_noise=noise,
+                 generator=generator, **kw)
+    return G(z, compute_dtype, **kw)
+
+
+def w_space(G: nn.Module) -> Optional[nn.Module]:
+    """``G``'s backbone (bare or under a masker) if it has a w-space, that
+    is ``num_ws`` style inputs (``models/stylegan2.py``), else None."""
+    net = G.backbone if has_masker(G) else G
+    return net if getattr(net, "num_ws", None) else None

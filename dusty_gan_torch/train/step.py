@@ -60,10 +60,9 @@ import torch
 from dusty_gan_torch.core.dtypes import DEFAULT_POLICY, Policy
 from dusty_gan_torch.geometry.lidar import sigmoid_to_tanh
 from dusty_gan_torch.models import losses, stylegan2
-from dusty_gan_torch.models.dusty import DUSty1, DUSty2
+from dusty_gan_torch.models.dusty import generate, noise_fields, w_space
 from dusty_gan_torch.ops.diff_augment import DEFAULT_POLICY as AUGMENT_POLICY
 from dusty_gan_torch.ops.diff_augment import diff_augment, draw_augment
-from dusty_gan_torch.ops.gumbel import logistic_noise
 from dusty_gan_torch.parallel import mesh
 from dusty_gan_torch.train.state import TrainState, ema_update, scheduled_step
 
@@ -89,22 +88,13 @@ def fetch_reals(batch: Dict[str, torch.Tensor], lidar, drop_const: float):
     return mask * inv + (1.0 - mask) * drop_const, mask
 
 
-def style_backbone(G):
-    """G's backbone (bare or under a masker) if it has a w-space, that is
-    ``num_ws`` style inputs (``models/stylegan2.py``), else None."""
-    net = G.backbone if isinstance(G, (DUSty1, DUSty2)) else G
-    return net if getattr(net, "num_ws", None) else None
-
-
 def apply_g(G, z, noise, compute_dtype, style=None, ws=None):
-    """One calling convention for plain and DUSty generators in training
-    mode; ``noise`` is the Gumbel noise a DUSty generator takes as
-    ``fixed_noise``; ``style`` (``StyleDraws``) and ``ws`` (in z's place)
+    """G in training mode: ``noise`` is the round's Gumbel noise
+    (``noise_fields``), ``style`` (``StyleDraws``) and ``ws`` (in z's place)
     go to a StyleGAN2 backbone."""
-    kw = {} if style is None and ws is None else {"style": style, "ws": ws}
-    if isinstance(G, (DUSty1, DUSty2)):
-        return G(z, compute_dtype, train=True, fixed_noise=noise, **kw)
-    return G(z, compute_dtype, **kw)
+    # every G forward of the step goes through this one name, so that a
+    # caller can tap the step's generator calls by patching it
+    return generate(G, z, compute_dtype, train=True, noise=noise, style=style, ws=ws)
 
 
 def draw_style(G, b: int, mix_prob: float, generator, device):
@@ -113,7 +103,7 @@ def draw_style(G, b: int, mix_prob: float, generator, device):
     ``mix_prob`` > 0 a second latent and a cutoff, uniform in [1, num_ws)
     with probability ``mix_prob`` and num_ws otherwise, drawn on the device
     (the host never reads it); then each noise layer's N(0, 1) field."""
-    net = style_backbone(G)
+    net = w_space(G)
     if net is None:
         if mix_prob > 0.0:
             raise ValueError(f"solver.mix_prob={mix_prob}: style mixing needs a generator "
@@ -130,24 +120,12 @@ def draw_style(G, b: int, mix_prob: float, generator, device):
     return stylegan2.StyleDraws(z_mix=z_mix, cutoff=cutoff, noise=noise)
 
 
-def draw_gumbel_noise(G, b: int, shape, generator, device):
-    """The logistic noise fields a DUSty generator consumes for a batch of
-    ``b``: None (no masker), (b, 1, H, W) (DUSty-I) or {"pixel", "image"}
-    (DUSty-II)."""
-    if isinstance(G, DUSty1):
-        return logistic_noise(generator, b, shape, True, device=device)
-    if isinstance(G, DUSty2):
-        return {"pixel": logistic_noise(generator, b, shape, True, device=device),
-                "image": logistic_noise(generator, b, shape, False, device=device)}
-    return None
-
-
 @dataclasses.dataclass
 class RoundDraws:
     """The draws of one accumulation round."""
 
     z: torch.Tensor  # (b, in_ch)
-    gumbel: object  # draw_gumbel_noise(G, b, ...)
+    gumbel: object  # noise_fields(G, generator, b, ...)
     aug_d_real: list
     aug_d_fake: list
     aug_g_fake: list
@@ -171,7 +149,7 @@ def sample_draws(generator: torch.Generator, device, G, *, rounds: int, b: int,
     for _ in range(rounds):
         d = RoundDraws(
             z=torch.randn((b, in_ch), generator=generator, device=device),
-            gumbel=draw_gumbel_noise(G, b, shape, generator, device),
+            gumbel=noise_fields(G, generator, b, shape, device),
             aug_d_real=aug(), aug_d_fake=aug(), aug_g_fake=aug(),
             style=draw_style(G, b, mix_prob, generator, device))
         if relativistic:
@@ -180,7 +158,7 @@ def sample_draws(generator: torch.Generator, device, G, *, rounds: int, b: int,
             b_pl = b // PL_BATCH_SHRINK
             d.pl = (torch.randn((b_pl, in_ch), generator=generator, device=device),
                     losses.path_length_noise((b_pl, 1, h, w), generator, device),
-                    draw_gumbel_noise(G, b_pl, shape, generator, device))
+                    noise_fields(G, generator, b_pl, shape, device))
             d.pl_style = draw_style(G, b_pl, mix_prob, generator, device)
         out.append(d)
     return out
@@ -302,7 +280,7 @@ class TrainStep:
         the mapping's graph."""
         z_pl, noise, gumbel_pl = d.pl
         mean = _rank_mean if self.distributed else None
-        net = style_backbone(G)
+        net = w_space(G)
         if net is None:
             g_depth = lambda zz: apply_g(G, zz, gumbel_pl, self.cdt)["depth"]  # noqa: E731
             return losses.path_length_penalty(g_depth, z_pl.detach().float().requires_grad_(True),

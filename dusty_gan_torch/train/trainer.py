@@ -85,7 +85,7 @@ from dusty_gan_torch.metrics.cov_mmd_1nna import compute_cov_mmd_1nna
 from dusty_gan_torch.metrics.fps import downsample_point_clouds
 from dusty_gan_torch.metrics.jsd import compute_jsd
 from dusty_gan_torch.metrics.swd import TorchDraws, compute_swd
-from dusty_gan_torch.models.dusty import DUSty1, DUSty2
+from dusty_gan_torch.models.dusty import generate
 from dusty_gan_torch.models.factory import define_D, define_G
 from dusty_gan_torch.parallel import mesh
 from dusty_gan_torch.train.checkpoint import (checkpoint_name, restore_checkpoint,
@@ -144,7 +144,6 @@ class Trainer:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(self.seed)
             G, D = define_G(cfg), define_D(cfg)
-        self.masked = isinstance(G, (DUSty1, DUSty2))
 
         angle_file = next((p for p in (osp.join(cfg.dataset.root, c)
                                        for c in ("angles.npy", "angles.pt"))
@@ -335,13 +334,10 @@ class Trainer:
         generator of ``GENERATE_STREAM``)."""
         G = self.state.G_ema if ema else self.state.G
         z = self.fixed_latent if latent is None else latent.to(self.device)
-        cdt = self.policy.compute_dtype
-        if self.masked:
-            g = torch.Generator(device=self.device)
-            g.manual_seed(derived_seed(self.seed, GENERATE_STREAM, 0))
-            out = G(z, cdt, train=train_mode, fixed_noise=noise, generator=g)
-        else:
-            out = G(z, cdt)
+        g = torch.Generator(device=self.device)
+        g.manual_seed(derived_seed(self.seed, GENERATE_STREAM, 0))
+        out = generate(G, z, self.policy.compute_dtype, train=train_mode, noise=noise,
+                       generator=g)
         return postprocess({k: v.permute(0, 2, 3, 1) for k, v in out.items()}, self.lidar)
 
     # ------------------------------------------------------------------
@@ -383,7 +379,7 @@ class Trainer:
         fake_2d, fake_3d = [], []
         for _ in range(0, n_total, self.batch_size):
             z = torch.randn((self.batch_size, self.in_ch), generator=g, device=self.device)
-            out = (G(z, cdt, train=False, generator=g) if self.masked else G(z, cdt))
+            out = generate(G, z, cdt, train=False, generator=g)
             inv = out["depth"].permute(0, 2, 3, 1)
             fake_2d.append(inv)
             fake_3d.append(self._inv_to_points(inv))

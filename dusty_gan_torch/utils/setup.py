@@ -18,9 +18,8 @@ import torch
 
 from dusty_gan_torch.config import Config, load_config
 from dusty_gan_torch.geometry.lidar import Lidar
-from dusty_gan_torch.models.dusty import DUSty1, DUSty2
+from dusty_gan_torch.models.dusty import generate, noise_fields
 from dusty_gan_torch.models.factory import define_G
-from dusty_gan_torch.ops.gumbel import logistic_noise
 from dusty_gan_torch.utils.jax_checkpoint import read_jax_checkpoint
 from dusty_gan_torch.utils.weights import generator_state_dict, load_reference_checkpoint
 
@@ -29,16 +28,12 @@ FIXED_NOISE_SEED = 0x501
 
 def make_fixed_noise(G, shape, seed: int = FIXED_NOISE_SEED, device="cpu"):
     """None, a (1, 1, H, W) field (DUSty-I) or {"pixel": (1, 1, H, W),
-    "image": (1, 1, 1, 1)} (DUSty-II)."""
-    g = torch.Generator().manual_seed(seed)
-    if isinstance(G, DUSty1):
-        return logistic_noise(g, 1, shape, pixelwise=True).to(device)
-    if isinstance(G, DUSty2):
-        return {
-            "pixel": logistic_noise(g, 1, shape, pixelwise=True).to(device),
-            "image": logistic_noise(g, 1, shape, pixelwise=False).to(device),
-        }
-    return None
+    "image": (1, 1, 1, 1)} (DUSty-II): ``noise_fields`` at a batch of one,
+    drawn on the CPU, then moved to ``device``."""
+    noise = noise_fields(G, torch.Generator().manual_seed(seed), 1, shape)
+    if isinstance(noise, dict):
+        return {k: v.to(device) for k, v in noise.items()}
+    return None if noise is None else noise.to(device)
 
 
 def setup(model_path: str, config_path: str,
@@ -99,14 +94,10 @@ def make_eval_generator(G, fixed_noise, compute_dtype=torch.bfloat16):
     (reference default 0.5).  Autograd is left as the caller has it: with
     G frozen (``setup``) the output carries a gradient for the latent
     alone, and only when the latent asks for one."""
-    masked = isinstance(G, (DUSty1, DUSty2))
 
     def gen(z, threshold: float = 0.5) -> Dict[str, torch.Tensor]:
-        if masked:
-            out = G(z, compute_dtype=compute_dtype, train=False,
-                    threshold=threshold, fixed_noise=fixed_noise)
-        else:
-            out = G(z, compute_dtype=compute_dtype)
+        out = generate(G, z, compute_dtype, train=False, threshold=threshold,
+                       noise=fixed_noise)
         return {k: _nhwc(v) for k, v in out.items()}
 
     return gen

@@ -190,8 +190,8 @@ def test_port_never_imports_jax(tmp_path):
         "for m in pkgutil.walk_packages(dusty_gan_torch.__path__, 'dusty_gan_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "from dusty_gan_torch.data import native\n"
-        "native.load()\n"
+        "from dusty_gan_torch import kernels\n"
+        "kernels.load('rangeproj')\n"
         "from dusty_gan_torch.utils.jax_checkpoint import adam_entry, read_jax_checkpoint\n"
         f"st = read_jax_checkpoint({ckpt!r})['state']\n"
         "assert int(st['step']) == 3 and adam_entry(st['opt_G'], 'opt_G')[0] == 0\n"

@@ -1,6 +1,6 @@
 """The port's training data path against the JAX package's, on the CPU.
 
-* The native library (``csrc/rangeproj.cpp``, built by ``data/native.py``)
+* The native library (``csrc/rangeproj.cpp``, built by ``kernels.py``)
   and the numpy pipeline give the same items bit for bit, and both equal
   the JAX package's ``_process`` (whose default is the same C++); JAX's
   own numpy fallback divides where the C++ multiplies by a reciprocal, so
@@ -24,10 +24,10 @@ from dusty_gan_tpu.config import compose as jax_compose
 from dusty_gan_tpu.data import datasets as jds
 from dusty_gan_tpu.data.loader import Loader as JaxLoader
 
+from dusty_gan_torch import kernels
 from dusty_gan_torch.cli.train import main as train_main
 from dusty_gan_torch.config import compose
 from dusty_gan_torch.data import datasets as tds
-from dusty_gan_torch.data import native
 from dusty_gan_torch.data.device_cache import DeviceDatasetCache
 from dusty_gan_torch.data.loader import Loader
 from dusty_gan_torch.data.synthetic import build_synthetic_kitti
@@ -69,12 +69,14 @@ def _scan(seed, h0=64, w0=512):
 
 
 def test_native_library_is_built_from_the_ports_source():
-    path = native.library_path()
+    path = kernels.library_path("rangeproj")
     assert path.parent.name == "dusty_gan_torch" and path.parent.parent.name == "build"
-    assert path.name.startswith("librangeproj-") and native.SOURCE.name == "rangeproj.cpp"
-    assert "-ffp-contract=off" in native.CXX_FLAGS
-    assert not any("march" in f for f in native.CXX_FLAGS)
-    assert native.build() == path and path.exists()
+    assert path.name.startswith("librangeproj-")
+    assert kernels.SOURCES["rangeproj"] == ("rangeproj.cpp", "c++")
+    assert "-ffp-contract=off" in kernels.flags("rangeproj")
+    assert not any("march" in f for f in kernels.flags("rangeproj"))
+    kernels.build(["rangeproj"])
+    assert path.exists() and not path.with_suffix(".log").exists()  # no ptxas log
 
 
 @pytest.mark.parametrize("flip", [False, True])
